@@ -1,0 +1,22 @@
+"""ekf_slam_tpu_torch — the EKF-SLAM engine in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of ``ekf_slam_tpu`` (JAX/XLA/Pallas), module for module: the same
+configuration fields, state layout and tick; plain PyTorch around the
+kernels; P updated in place.  This package imports neither JAX nor
+``ekf_slam_tpu``.  Entry points run on CUDA unless given ``device='cpu'``.
+
+    from ekf_slam_tpu_torch import SlamSession, EKFParams, RansacParams
+    sess = SlamSession(ekf_params=tuned_params(EKFParams(
+        capacity=10000, max_obs=8, ref_compat=False,
+        update_mode="batched"), batch=8),
+        ransac_params=RansacParams(n_hypotheses=64, ref_compat=False))
+    carry, outs = sess.run(odom_poses, ranges, beam_angles)
+"""
+
+from .config import EKFParams, RansacParams, SimConfig
+from .session import SessionCarry, SlamSession
+from .utils.schedule import tuned_params
+
+__all__ = ["SlamSession", "SessionCarry", "EKFParams", "RansacParams",
+           "SimConfig", "tuned_params"]

@@ -1,0 +1,158 @@
+"""The plain versions of the port's two CUDA kernels against the JAX
+package's Pallas kernels run in interpret mode, and the wrappers' CPU
+behaviour and input checks.  The CUDA kernels themselves have no
+interpret mode: chip_smoke.py builds them on the GPU and holds each one
+against these plain versions there."""
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ekf_slam_tpu.ops.pallas import kernels as jk
+from ekf_slam_tpu_torch.ops import kernels as tk
+
+from torch_parity_helpers import n, t
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _sym(rng, D):
+    A = rng.normal(0, 1, (D, D))
+    return 0.5 * (A + A.T) + D * np.eye(D)
+
+
+@pytest.mark.parametrize("D,R", [(256, 16), (384, 96)])
+def test_syrk_ref_matches_pallas_f64(rng, D, R):
+    P = _sym(rng, D)
+    W = rng.normal(0, 1, (D, R))
+    want = jk.syrk_downdate_pallas(jnp.asarray(P), jnp.asarray(W), tile=128,
+                                   interpret=True)
+    got = tk.syrk_downdate_ref(torch.from_numpy(P), torch.from_numpy(W))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jk.syrk_downdate_ref(jnp.asarray(P),
+                                                     jnp.asarray(W))),
+        rtol=1e-12, atol=1e-12)
+
+
+def test_syrk_ref_matches_pallas_bf16(rng):
+    """bf16 storage, f32 accumulation, one rounding on the way out in both
+    packages; the f32 sums run in other orders, so an element may land on
+    the neighbouring bf16 value: within one bf16 ulp of the element."""
+    D, R = 256, 16
+    P = jnp.asarray(_sym(rng, D), jnp.float32).astype(jnp.bfloat16)
+    W = jnp.asarray(rng.normal(0, 0.1, (D, R)), jnp.float32).astype(
+        jnp.bfloat16)
+    want = n(jk.syrk_downdate_pallas(P, W, tile=128, interpret=True))
+    got = tk.syrk_downdate_ref(t(P), t(W))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(n(got), want, rtol=2 ** -8, atol=0)
+    assert np.mean(n(got) == want) > 0.99
+
+
+@pytest.mark.parametrize("D", [300, 1003 // 3])
+def test_syrk_ref_ragged_matches_f64_product(rng, D):
+    """Any D: the port's kernel masks the ragged edge, so the plain
+    version is held to P − W·Wᵀ directly on a D that is no multiple of
+    128 (the JAX dispatcher would fall back to the dense GEMM here)."""
+    P = _sym(rng, D)
+    W = rng.normal(0, 1, (D, 16))
+    got = tk.syrk_downdate_ref(torch.from_numpy(P), torch.from_numpy(W))
+    np.testing.assert_allclose(got.numpy(), P - W @ W.T, rtol=1e-13,
+                               atol=1e-12)
+
+
+def test_syrk_wrapper_updates_cpu_tensor_in_place(rng):
+    P = torch.from_numpy(_sym(rng, 64))
+    W = torch.from_numpy(rng.normal(0, 1, (64, 8)))
+    want = P - W @ W.T
+    ptr = P.data_ptr()
+    before = tk.syrk_downdate.launches
+    out = tk.syrk_downdate(P, W)
+    assert out.data_ptr() == ptr == P.data_ptr()
+    np.testing.assert_allclose(P.numpy(), want.numpy(), rtol=1e-13)
+    assert tk.syrk_downdate.launches == before     # no kernel on the CPU
+
+
+@pytest.mark.parametrize("bad", ["not_square", "w_rows", "w_dtype",
+                                 "devices"])
+def test_syrk_wrapper_rejects_bad_inputs(bad):
+    P = torch.zeros((8, 8))
+    W = torch.zeros((8, 2))
+    if bad == "not_square":
+        P = torch.zeros((8, 9))
+    elif bad == "w_rows":
+        W = torch.zeros((7, 2))
+    elif bad == "w_dtype":
+        W = W.double()
+    else:
+        W = W.to("meta")
+    with pytest.raises(ValueError):
+        tk.syrk_downdate(P, W)
+
+
+def _lines_case(rng, NH, B, thresh=0.25):
+    pts = rng.uniform(-5, 5, (B, 2))
+    lines = np.stack([rng.normal(0, 2, NH), rng.uniform(-4, 4, NH)], -1)
+    valid = rng.random(B) < 0.85
+    d = (np.abs(lines[:, :1] * pts[None, :, 0] - pts[None, :, 1]
+                + lines[:, 1:]) / np.sqrt(lines[:, :1] ** 2 + 1))
+    # keep every point more than 1e-6 away from the threshold
+    valid &= ~(np.abs(d - thresh) < 1e-6).any(axis=0)
+    return pts, valid, lines
+
+
+@pytest.mark.parametrize("NH,B,dtype", [(8, 100, np.float64),
+                                        (16, 256, np.float64),
+                                        (16, 256, np.float32)])
+def test_score_lines_ref_matches_pallas(rng, NH, B, dtype):
+    pts, valid, lines = _lines_case(rng, NH, B)
+    pts, lines = pts.astype(dtype), lines.astype(dtype)
+    want = jk.score_lines_pallas(jnp.asarray(pts), jnp.asarray(valid),
+                                 jnp.asarray(lines), 0.25, interpret=True)
+    got = tk.score_lines_ref(torch.from_numpy(pts), torch.from_numpy(valid),
+                             torch.from_numpy(lines), 0.25)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jk.score_lines_ref(
+            jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(lines), 0.25)))
+    before = tk.score_lines.launches
+    np.testing.assert_array_equal(
+        tk.score_lines(torch.from_numpy(pts), torch.from_numpy(valid),
+                       torch.from_numpy(lines), 0.25).numpy(), got.numpy())
+    assert tk.score_lines.launches == before       # no kernel on the CPU
+
+
+@pytest.mark.parametrize("bad", ["points_shape", "valid_dtype",
+                                 "lines_shape", "devices"])
+def test_score_lines_wrapper_rejects_bad_inputs(bad):
+    pts, valid, lines = torch.zeros((6, 2)), torch.ones(6, dtype=torch.bool), \
+        torch.zeros((3, 2))
+    if bad == "points_shape":
+        pts = torch.zeros((6, 3))
+    elif bad == "valid_dtype":
+        valid = torch.ones(6)
+    elif bad == "lines_shape":
+        lines = torch.zeros(3)
+    else:
+        lines = lines.to("meta")
+    with pytest.raises(ValueError):
+        tk.score_lines(pts, valid, lines, 0.25)
+
+
+def test_kernel_sources_export_the_bound_symbols():
+    """The ctypes binding names one extern "C" entry point per source."""
+    for name, src in tk._SOURCES.items():
+        text = (ROOT / "ekf_slam_tpu_torch" / "csrc" / src).read_text()
+        assert f'extern "C" int {name}(' in text
+        assert "cudaGetLastError()" in text
+    assert tk.BUILD_DIR == ROOT / "build" / "torch_kernels"

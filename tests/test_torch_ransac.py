@@ -1,0 +1,177 @@
+"""ekf_slam_tpu_torch RANSAC extraction against ekf_slam_tpu at float64:
+the batched-hypothesis wall search fed the JAX package's own threefry
+draws (lines, ok and the remaining pool equal; floats within 1e-10), the
+candidate table over several ticks (table and ObsBatch equal), write-back
+and the line-fit helpers."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ekf_slam_tpu import config as jc
+from ekf_slam_tpu.ops import ransac as jr
+from ekf_slam_tpu.ops import scan as jscan
+from ekf_slam_tpu.sim import world as jw
+from ekf_slam_tpu_torch.ops import ransac as tr
+from ekf_slam_tpu_torch.ops import scan as tscan
+
+from torch_parity_helpers import max_rel, n, port, t
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+NH, B = 16, 256
+
+
+def _rp(**kw):
+    base = dict(line_consensus=20, bearing_window_deg=20.0, sample_points=8,
+                wall_search_timeout=4, table_capacity=32, promote_count=2,
+                ref_compat=False, n_hypotheses=NH, dtype=jnp.float64)
+    base.update(kw)
+    return jc.RansacParams(**base)
+
+
+def _draws(key):
+    """The draws the JAX wall search makes from ``key``
+    (ransac.py:314-325)."""
+    k_pick, k_sample = jax.random.split(key)
+    return (t(jax.random.uniform(k_pick, (NH, B))),
+            t(jax.random.uniform(k_sample, (NH, B))))
+
+
+def _scan(rng, pose, noise=0.01):
+    room = jw.rectangle_room(4.0, 3.0)
+    beams = jnp.linspace(0.0, 360.0, B, endpoint=False)
+    r = jw.raycast(room, jnp.asarray(pose), beams, 12.0)
+    r = r + jnp.asarray(rng.normal(0, noise, B))
+    return jscan.scan_from_ranges(r, beams)
+
+
+def _world_points(rng, pose):
+    js = _scan(rng, pose)
+    return jscan.scan_to_world(js, jnp.asarray(pose)), js.valid
+
+
+def test_fit_line_and_helpers_match(rng):
+    pts = rng.uniform(-4, 4, (B, 2))
+    w = rng.random((5, B)) < 0.3
+    tm, tb_, tok = tr.fit_line(torch.from_numpy(pts), torch.from_numpy(w))
+    for i in range(5):
+        jm, jb_, jok = jr.fit_line(jnp.asarray(pts), jnp.asarray(w[i]))
+        assert abs(float(tm[i]) - float(jm)) <= 1e-10 * max(1, abs(float(jm)))
+        assert abs(float(tb_[i]) - float(jb_)) <= 1e-10 * max(
+            1, abs(float(jb_)))
+        assert bool(tok[i]) == bool(jok)
+    m, b = 0.7, -1.3
+    tm, tb_ = (torch.tensor(v, dtype=torch.float64) for v in (m, b))
+    assert max_rel(tr.point_line_dist(torch.from_numpy(pts), tm, tb_),
+                   jr.point_line_dist(jnp.asarray(pts), m, b)) <= 1e-14
+    assert max_rel(tr.perpendicular_foot(tm, tb_),
+                   jr.perpendicular_foot(m, b)) <= 1e-15
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(ref_compat=True), dict(refine_passes=2),
+    dict(split_gap=1.2, split_kink_deg=10.0, max_fit_rms=0.05)],
+    ids=["default", "ref_compat", "refine", "split"])
+def test_find_walls_batched_matches(rng, kw):
+    p = _rp(**kw)
+    pose = np.array([0.4, -0.3, 25.0])
+    pts, valid = _world_points(rng, pose)
+    key = jax.random.PRNGKey(3)
+    want = jr.find_walls_batched(pts, valid, key, p, NH)
+    got = tr.find_walls_batched(t(pts), t(valid), port(p), NH,
+                                draws=_draws(key))
+    lines, ok, remaining, stats = (n(v) for v in got)
+    np.testing.assert_array_equal(ok, n(want[1]))
+    # the two-quadrant window (ref_compat) merges opposite walls' bearings
+    # and finds no wall in this scan — in both packages
+    assert ok.any() != p.ref_compat
+    np.testing.assert_array_equal(remaining, n(want[2]))
+    np.testing.assert_allclose(lines, n(want[0]), rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(stats, n(want[3]), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(writeback_mode="sig", match_mode="nearest"),
+    dict(writeback_last_only=False), dict(writeback_mode="off")],
+    ids=["ref", "sig-nearest", "ref-all", "off"])
+def test_extract_sequence_matches(rng, kw):
+    """Six extraction ticks on a moving pose: the table's promotion,
+    snapping, decay and write-back, and each tick's ObsBatch, agree."""
+    p = _rp(**kw)
+    tp = port(p)
+    jtab, ttab = jr.init_table(p), tr.init_table(tp, device="cpu")
+    K = 6
+    x = np.zeros(3 + 2 * K)
+    sig = np.zeros(K)
+    key = jax.random.PRNGKey(7)
+    extract = jax.jit(jr.extract, static_argnums=(5, 6))
+    for tick in range(6):
+        pose = np.array([0.05 * tick, 0.02 * tick, 3.0 * tick])
+        x[:3] = pose
+        na = min(tick, K)
+        x[3:3 + 2 * na] = rng.uniform(-3, 3, 2 * na)     # "filter" state
+        sig[:na] = np.arange(1, na + 1)
+        js = _scan(rng, pose)
+        key, sub = jax.random.split(key)
+        jobs, jtab = extract(jtab, js, jnp.asarray(x), jnp.asarray(na, jnp.int32),
+                             sub, p, 8, jnp.asarray(sig))
+        ts = tscan.Scan(*(t(v) for v in js))
+        tobs, ttab = tr.extract(ttab, ts, torch.from_numpy(x),
+                                torch.tensor(na, dtype=torch.int32), tp, 8,
+                                sig=torch.from_numpy(sig),
+                                draws=_draws(sub))
+        for f in ("observe", "index", "fresh", "used"):
+            np.testing.assert_array_equal(n(getattr(ttab, f)),
+                                          n(getattr(jtab, f)), err_msg=f)
+        np.testing.assert_allclose(n(ttab.loc), n(jtab.loc), atol=1e-10)
+        np.testing.assert_array_equal(n(tobs.valid), n(jobs.valid))
+        np.testing.assert_array_equal(n(tobs.index), n(jobs.index))
+        for f in ("rng", "bearing", "loc", "R"):
+            np.testing.assert_allclose(n(getattr(tobs, f)),
+                                       n(getattr(jobs, f)), rtol=1e-10,
+                                       atol=1e-10, err_msg=f)
+    assert n(ttab.index).max() > 0                 # something was promoted
+
+
+def test_update_table_edge_cases_match(rng):
+    """No candidates (nothing decays), the empty table seeded with the
+    first candidate only, and a full table dropping new candidates."""
+    p = _rp(table_capacity=4, freshness=2)
+    tp = port(p)
+    jtab, ttab = jr.init_table(p), tr.init_table(tp, device="cpu")
+    pose = np.array([0.1, 0.2, 10.0])
+    cases = [
+        (np.zeros((4, 2)), np.zeros(4, bool)),
+        (rng.uniform(-3, 3, (4, 2)), np.array([False, True, True, True])),
+        (rng.uniform(-3, 3, (4, 2)), np.ones(4, bool)),
+        (rng.uniform(-3, 3, (4, 2)), np.ones(4, bool)),
+        (np.zeros((4, 2)), np.zeros(4, bool)),
+    ]
+    for cands, ok in cases:
+        jobs, jtab = jr.update_table(jtab, jnp.asarray(cands),
+                                     jnp.asarray(ok), jnp.asarray(pose), p, 3)
+        tobs, ttab = tr.update_table(ttab, torch.from_numpy(cands),
+                                     torch.from_numpy(ok),
+                                     torch.from_numpy(pose), tp, 3)
+        for f in ("observe", "index", "fresh", "used"):
+            np.testing.assert_array_equal(n(getattr(ttab, f)),
+                                          n(getattr(jtab, f)), err_msg=f)
+        np.testing.assert_allclose(n(ttab.loc), n(jtab.loc), atol=1e-12)
+        np.testing.assert_array_equal(n(tobs.valid), n(jobs.valid))
+        assert tobs.R is None and jobs.R is None
+
+
+def test_sequential_wall_search_raises(rng):
+    p = port(_rp(n_hypotheses=0))
+    js = _scan(rng, np.zeros(3))
+    with pytest.raises(NotImplementedError, match="sequential"):
+        tr.extract(tr.init_table(p, device="cpu"),
+                   tscan.Scan(*(t(v) for v in js)),
+                   torch.zeros(9, dtype=torch.float64),
+                   torch.tensor(0, dtype=torch.int32), p, 8)

@@ -1,0 +1,216 @@
+"""The slice as a whole: ekf_slam_tpu_torch's SlamSession against
+ekf_slam_tpu's on the CPU.
+
+Both sessions run the batched odometry-driven tick (rows P·Hᵀ + SYRK
+correction, batched-hypothesis extractor) over the same simulated
+sequence.  The JAX session draws its extractor randomness from threefry;
+the port is handed exactly those draws (session.py:320 then
+ransac.py:314-325), so the two runs take the same decisions tick by
+tick.  Also: the simulator's noise-free ray cast, the padded initial
+carry, and the modes this slice does not port."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ekf_slam_tpu import config as jc
+from ekf_slam_tpu.session import SlamSession as JSession
+from ekf_slam_tpu.sim import world as jw
+from ekf_slam_tpu_torch import SlamSession as TSession
+from ekf_slam_tpu_torch import config as tc
+from ekf_slam_tpu_torch import convert
+from ekf_slam_tpu_torch.sim import world as tw
+
+from torch_parity_helpers import max_rel, n, port, t
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+T, B, NH, SEED = 12, 256, 16, 1
+
+
+@pytest.fixture(scope="module")
+def traj():
+    """A 12-tick loop in the 8 m × 6 m room, simulated by the JAX
+    package (noise from its own key)."""
+    cfg = jc.SimConfig(n_beams=B, max_range=12.0, range_noise_std=0.01,
+                       odom_xy_noise_std=0.0005, odom_theta_noise_std=0.02)
+    return jw.simulate(jw.rectangle_room(4.0, 3.0),
+                       jw.circle_controls(T, 0.05, 3.0), cfg,
+                       jax.random.PRNGKey(0))
+
+
+def jax_draws(seed: int, ticks: int):
+    """The (u, s) pairs the JAX session's extractor draws on each tick:
+    key, sub = split(key); k_pick, k_sample = split(sub)."""
+    key, out = jax.random.PRNGKey(seed), []
+    for _ in range(ticks):
+        key, sub = jax.random.split(key)
+        k_pick, k_sample = jax.random.split(sub)
+        out.append((t(jax.random.uniform(k_pick, (NH, B))),
+                    t(jax.random.uniform(k_sample, (NH, B)))))
+    return out
+
+
+def _params(dtype, cov_dtype=None):
+    ep = jc.EKFParams(capacity=16, max_obs=8, ref_compat=False,
+                      update_mode="batched", dtype=dtype, pht_mode="rows",
+                      correction="syrk", cov_dtype=cov_dtype)
+    rp = jc.RansacParams(line_consensus=20, bearing_window_deg=20.0,
+                         sample_points=8, wall_search_timeout=4,
+                         table_capacity=32, promote_count=2,
+                         ref_compat=False, n_hypotheses=NH, dtype=dtype)
+    return ep, rp
+
+
+def _run_both(traj, dtype, cov_dtype=None, collect_nis=False):
+    ep, rp = _params(dtype, cov_dtype)
+    js = JSession(ekf_params=ep, ransac_params=rp, seed=SEED,
+                  collect_nis=collect_nis)
+    c0 = js.init_carry(first_odom=traj.odom[0])
+    jcarry, jouts = js.run(traj.odom, traj.ranges, traj.beam_angles,
+                           carry=c0)
+    ts = TSession(ekf_params=port(ep), ransac_params=port(rp), seed=SEED,
+                  collect_nis=collect_nis, device="cpu")
+    tc0 = convert.carry_from_numpy(jax.tree.map(np.asarray, c0),
+                                   device="cpu")
+    tcarry, touts = ts.run(np.array(traj.odom), np.array(traj.ranges),
+                           t(traj.beam_angles), carry=tc0,
+                           draws=jax_draws(SEED, T))
+    return (jcarry, jouts), (tcarry, touts)
+
+
+def _same_decisions(jouts, touts):
+    for f in ("n_active", "n_obs"):
+        np.testing.assert_array_equal(n(getattr(touts, f)),
+                                      n(getattr(jouts, f)), err_msg=f)
+    np.testing.assert_array_equal(n(touts.obs.valid), n(jouts.obs.valid))
+    np.testing.assert_array_equal(n(touts.obs.index), n(jouts.obs.index))
+    assert n(touts.n_active)[-1] >= 3           # the room's walls were mapped
+
+
+def test_session_parity_f64(traj):
+    """f64: per-tick pose ≤ 1e-9, every decision equal, final x and P
+    ≤ 1e-9 relative, per-observation NIS ≤ 1e-9 relative."""
+    (jc_, jo), (tc_, to) = _run_both(traj, jnp.float64, collect_nis=True)
+    _same_decisions(jo, to)
+    assert np.abs(n(to.pose) - n(jo.pose)).max() <= 1e-9
+    assert max_rel(tc_.filt.x, jc_.filt.x) <= 1e-9
+    assert max_rel(tc_.filt.P, jc_.filt.P) <= 1e-9
+    assert tc_.filt.P.shape == (512, 512)       # syrk pads D = 35 to 512
+    nis_t, nis_j = n(to.nis), n(jo.nis)
+    np.testing.assert_array_equal(np.isnan(nis_t), np.isnan(nis_j))
+    assert np.isfinite(nis_j).any()
+    ok = np.isfinite(nis_j)
+    assert max_rel(nis_t[ok], nis_j[ok]) <= 1e-9
+    for f in ("observe", "index", "fresh", "used"):
+        np.testing.assert_array_equal(n(getattr(tc_.table, f)),
+                                      n(getattr(jc_.table, f)), err_msg=f)
+
+
+def test_session_parity_bf16_storage(traj):
+    """bf16 P with f32 compute.  Both packages accumulate the large
+    products in f32, but XLA and PyTorch sum in different orders, so an
+    f32 result near a bf16 rounding boundary can land on the other
+    neighbour: one bf16 ulp (2⁻⁸ relative) in a P entry, which reaches the
+    mean through the gain at f32 precision.  Tolerances: P within two bf16
+    ulps of |P|max, x and the pose within 1e-4; every decision equal."""
+    (jc_, jo), (tc_, to) = _run_both(traj, jnp.float32, jnp.bfloat16)
+    assert tc_.filt.P.dtype == torch.bfloat16
+    _same_decisions(jo, to)
+    assert np.abs(n(to.pose) - n(jo.pose)).max() <= 1e-4
+    assert max_rel(tc_.filt.x, jc_.filt.x) <= 1e-4
+    assert max_rel(tc_.filt.P, jc_.filt.P) <= 2.0 ** -7
+
+
+def test_session_default_draws_are_seeded():
+    """Without explicit draws the port draws from the session's
+    torch.Generator: the same seed gives the same run."""
+    cfg = tc.SimConfig(n_beams=B, max_range=12.0, dtype=torch.float64)
+    g = torch.Generator().manual_seed(0)
+    tr = tw.simulate(tw.rectangle_room(4.0, 3.0, torch.float64, "cpu"),
+                     tw.circle_controls(6, 0.05, 3.0, torch.float64, "cpu"),
+                     cfg, g)
+    ep, rp = (port(p) for p in _params(jnp.float64))
+    runs = [TSession(ekf_params=ep, ransac_params=rp, seed=3,
+                     device="cpu").run(tr.odom, tr.ranges, tr.beam_angles)
+            for _ in range(2)]
+    (c1, o1), (c2, o2) = runs
+    assert torch.equal(o1.pose, o2.pose) and torch.equal(c1.filt.P, c2.filt.P)
+    assert int(o1.n_active[-1]) > 0
+
+
+@pytest.mark.parametrize("pose", [(0.0, 0.0, 0.0), (1.3, -0.7, 37.0),
+                                  (-2.5, 2.1, 300.0)])
+def test_raycast_matches(pose):
+    """Noise-free ray cast in the rectangle room, f64: the same hits and
+    misses (NaN beyond max_range), ranges within 1e-12."""
+    beams = np.arange(B) * (360.0 / B)
+    want = jw.raycast(jw.rectangle_room(4.0, 3.0), jnp.asarray(pose),
+                      jnp.asarray(beams), 4.5)
+    got = tw.raycast(tw.rectangle_room(4.0, 3.0, torch.float64, "cpu"),
+                     torch.tensor(pose, dtype=torch.float64),
+                     torch.from_numpy(beams), 4.5)
+    np.testing.assert_array_equal(np.isnan(n(got)), np.isnan(n(want)))
+    assert np.isnan(n(want)).any() and not np.isnan(n(want)).all()
+    np.testing.assert_allclose(n(got), n(want), rtol=0, atol=1e-12)
+
+
+def test_simulate_noise_free_matches():
+    """With every noise std at 0, the two simulators give the same truth,
+    odometry and scans (the noise draws differ; they are multiplied by 0)."""
+    T6 = 6
+    jcfg = jc.SimConfig(n_beams=64, max_range=12.0, range_noise_std=0.0,
+                        odom_xy_noise_std=0.0, odom_theta_noise_std=0.0)
+    want = jw.simulate(jw.rectangle_room(4.0, 3.0),
+                       jw.circle_controls(T6, 0.05, 3.0), jcfg,
+                       jax.random.PRNGKey(0))
+    got = tw.simulate(tw.rectangle_room(4.0, 3.0, torch.float64, "cpu"),
+                      tw.circle_controls(T6, 0.05, 3.0, torch.float64, "cpu"),
+                      dataclasses.replace(port(jcfg), dtype=torch.float64),
+                      torch.Generator().manual_seed(0))
+    for f in ("truth", "odom", "ranges", "beam_angles"):
+        np.testing.assert_allclose(n(getattr(got, f)), n(getattr(want, f)),
+                                   rtol=0, atol=1e-12, err_msg=f)
+
+
+@pytest.mark.parametrize("syrk", [True, False])
+def test_init_carry_matches(syrk):
+    """The initial carry, padded to a multiple of 512 under syrk, equals
+    the JAX session's leaf for leaf; init_pose anchors the filter."""
+    ep, rp = _params(jnp.float64)
+    if not syrk:
+        ep = dataclasses.replace(ep, correction="gemm")
+    odo, pose0 = np.array([0.2, -0.1, 15.0]), np.array([1.0, 2.0, 30.0])
+    jcarry = JSession(ekf_params=ep, ransac_params=rp).init_carry(
+        first_odom=odo, init_pose=pose0)
+    tcarry = TSession(ekf_params=port(ep), ransac_params=port(rp),
+                      device="cpu").init_carry(first_odom=odo,
+                                               init_pose=pose0)
+    assert tcarry.filt.P.shape[0] == (512 if syrk else ep.dim)
+    for part in ("filt", "table"):
+        for f in getattr(tcarry, part)._fields:
+            np.testing.assert_array_equal(
+                n(getattr(getattr(tcarry, part), f)),
+                n(getattr(getattr(jcarry, part), f)), err_msg=f)
+    np.testing.assert_array_equal(n(tcarry.old_odom), n(jcarry.old_odom))
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(control_source="icp"), "control_source"),
+    (dict(maintain_max_trace=1.0), "maintenance"),
+    (dict(ekf=dict(update_mode="sequential")), "update_mode"),
+    (dict(ekf=dict(guard_max_jump=1.0)), "guard"),
+])
+def test_modes_of_later_slices_raise(kw, match):
+    kw = dict(kw)
+    ep = tc.EKFParams(**{"update_mode": "batched", **kw.pop("ekf", {})})
+    with pytest.raises(NotImplementedError, match=match):
+        TSession(ekf_params=ep, ransac_params=tc.RansacParams(n_hypotheses=8),
+                 device="cpu", **kw)
