@@ -12,6 +12,11 @@ kernels; P updated in place.  This package imports neither JAX nor
         update_mode="batched"), batch=8),
         ransac_params=RansacParams(n_hypotheses=64, ref_compat=False))
     carry, outs = sess.run(odom_poses, ranges, beam_angles)
+
+The session's kernel path runs the fused gate, row-pair gather and
+in-place covariance correction kernels instead: ``EKFParams(...,
+pht_mode="rows", rows_gather="pallas", correction="gemm",
+use_pallas=True)`` with f32 P.
 """
 
 from .config import EKFParams, RansacParams, SimConfig

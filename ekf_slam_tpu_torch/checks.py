@@ -1,7 +1,7 @@
 """Inputs and runs shared by the port's on-card checks (``chip_smoke.py``
-and ``tests/test_torch_cuda.py``): the K3 scoring case and one session run
-on several devices with the same inputs.  Each caller keeps its own
-shapes and tolerances."""
+and ``tests/test_torch_cuda.py``): the K3 scoring case, the K2 gating
+case, the K5 pair starts, and one session run on several devices with the
+same inputs.  Each caller keeps its own shapes and tolerances."""
 from __future__ import annotations
 
 from typing import Dict, Iterable, Tuple
@@ -9,6 +9,7 @@ from typing import Dict, Iterable, Tuple
 import torch
 
 from .config import EKFParams, RansacParams, SimConfig
+from .ops.angles import atan2d, wrap_to_360
 from .session import SlamSession
 from .sim import world as W
 
@@ -30,6 +31,67 @@ def score_lines_case(g: torch.Generator, NH: int, B: int, thresh: float
            .abs() / torch.sqrt(l64[:, :1] ** 2 + 1.0))
     valid &= ~((d64 - thresh).abs() < 1e-5).any(dim=0)
     return pts, valid, lines
+
+
+def gate_case(g: torch.Generator, M: int, K: int
+              ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+    """Inputs of ``gating.gate_costs`` on ``g``'s device, float32 and
+    contiguous: (pose, prr, zs, rdiag, lm, sig, active, prl, pll), and a
+    keep mask [M,K].  About 80% of the K slots are active; the strips form
+    a positive-definite P block per slot; three in four measurements
+    re-observe a slot with noise and its signature, the rest are new.
+    ``keep`` is False where the bearing innovation (in f64) lies within
+    1e-4° of the ±180 seam of the wrap: two roundings of it may land on
+    either side, which changes the cost's sign-dependent cross term."""
+    dev = g.device
+    f64 = torch.float64
+
+    def u(shape, lo, hi):
+        return torch.rand(shape, generator=g, device=dev, dtype=f64) \
+            * (hi - lo) + lo
+
+    def nrm(shape, std):
+        return torch.randn(shape, generator=g, device=dev, dtype=f64) * std
+
+    pose = torch.cat([u((2,), -1.0, 1.0), u((1,), 0.0, 360.0)])
+    A = nrm((3, 3), 0.1)
+    prr = A @ A.T + 0.01 * torch.eye(3, dtype=f64, device=dev)
+    lm = u((K, 2), -10.0, 10.0)
+    sig = torch.arange(1, K + 1, dtype=f64, device=dev)
+    active = torch.rand((K,), generator=g, device=dev) < 0.8
+    L = nrm((K, 2, 2), 0.1)
+    pll = (L @ L.transpose(1, 2)
+           + 0.01 * torch.eye(2, dtype=f64, device=dev)).reshape(K, 4)
+    prl = nrm((K, 6), 0.003)
+    tgt = torch.randint(0, K, (M,), generator=g, device=dev)
+    new = torch.rand((M,), generator=g, device=dev) < 0.25
+    zlm = torch.where(new[:, None], u((M, 2), -10.0, 10.0),
+                      lm[tgt] + nrm((M, 2), 0.05))
+    d = zlm - pose[:2]
+    rng_ = torch.hypot(d[:, 0], d[:, 1])
+    zs = torch.stack([rng_, torch.remainder(atan2d(d[:, 1], d[:, 0])
+                                            - pose[2], 360.0),
+                      torch.where(new, 1e5 + torch.arange(M, device=dev,
+                                                          dtype=f64),
+                                  sig[tgt])], dim=-1)
+    rdiag = torch.stack([rng_ * 0.01, u((M,), 0.5, 5.0)], dim=-1)
+    args = tuple(a.float().contiguous() for a in (pose, prr, zs, rdiag, lm,
+                                                  sig))
+    args = args + (active, prl.float().contiguous(),
+                   pll.float().contiguous())
+    p32, lm32, zs32 = (a.double() for a in (args[0], args[4], args[2]))
+    zphi = wrap_to_360(atan2d(lm32[:, 1] - p32[1], lm32[:, 0] - p32[0])
+                       - p32[2])
+    seam = torch.remainder(zs32[:, 1:2] - zphi[None, :] + 180.0, 360.0)
+    keep = (seam > 1e-4) & (seam < 360.0 - 1e-4)
+    return args, keep
+
+
+def pair_starts(rows: int, device, dtype=torch.int64) -> torch.Tensor:
+    """Eight pair starts into a matrix of ``rows`` rows: duplicates,
+    unordered, and the last row pair (rows − 2)."""
+    s = [3, rows - 2, 3, rows // 2 + 1, 5, rows - 2, 0, rows // 3]
+    return torch.tensor(s, dtype=dtype, device=device)
 
 
 def session_on_devices(ep: EKFParams, rp: RansacParams, T: int,

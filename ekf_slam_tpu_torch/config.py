@@ -65,15 +65,20 @@ class EKFParams:
     update_chunks: int = 1
     pht_mode: str = "dense"
     #: 'take' gathers the observed row pairs with ``index_select``;
-    #: 'pallas' names the pair-gather kernel, which is not ported yet.
+    #: 'pallas' runs the hand-written pair-gather kernel
+    #: (ops/kernels.pair_gather) on CUDA tensors.  Unlike the JAX kernel
+    #: it takes any shape, so nothing is padded and nothing falls back.
     rows_gather: str = "take"
     #: 'syrk' runs the hand-written CUDA SYRK downdate
     #: (ops/kernels.syrk_downdate) on CUDA tensors.
     correction: str = "gemm"
     guard_max_jump: float = None
     ref_compat: bool = True
-    #: the fused gate kernel and the cov_update kernel are not ported yet:
-    #: paths that would run them raise NotImplementedError.
+    #: the batched session's kernel path: the fused gate kernel
+    #: (ops/gating.gate_costs) in place of the plain gate, and with
+    #: non-bf16 P and the gemm correction the in-place cov_update kernel
+    #: (ops/kernels.cov_update).  On TPU this is the JAX package's measured
+    #: experiment setting, not a default.
     use_pallas: bool = False
     masked_writes: bool = False
     joseph: bool = False

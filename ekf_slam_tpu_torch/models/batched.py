@@ -13,9 +13,10 @@ and an identity S block, making them exact no-ops, so every tick runs the
 same ops on the same shapes whatever the data — no host round trip.
 
 P is updated in place (the JAX SYRK aliases its P buffer,
-kernels.py:350, and the session donates its carry).  With
-``correction='syrk'`` the downdate runs the hand-written CUDA kernel on
-CUDA tensors (ops/kernels.syrk_downdate).
+kernels.py:350, and the session donates its carry).  On CUDA tensors the
+hand-written kernels of ops/kernels run: ``correction='syrk'`` the SYRK
+downdate; ``use_pallas`` with non-bf16 P and the gemm correction the
+in-place ``cov_update``; ``rows_gather='pallas'`` the row-pair gather.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from ..config import ASSOC_KNOWN, EKFParams
 from ..models import ekf
 from ..ops.angles import wrap_to_180
 from ..ops.association import gate_batch
-from ..ops.kernels import syrk_downdate
+from ..ops.kernels import cov_update, gather_pairs, syrk_downdate
 from ..ops.observations import ObsBatch
 from ..state import FilterState
 
@@ -87,18 +88,14 @@ def hp_from_rows(P: torch.Tensor, x: torch.Tensor, zs: torch.Tensor,
                  dt) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(HP [2M,D], Ht [D,2M], nu [2M]) from the OBSERVED rows of a
     symmetric P: the pose rows plus one contiguous row pair per gated
-    landmark (pht_mode='rows'; P·Hᵀ = (H·P)ᵀ by symmetry)."""
-    if params.rows_gather == "pallas":
-        raise NotImplementedError(
-            "rows_gather='pallas' runs the pair-gather kernel (K5, "
-            "kernels.pair_gather_pallas), which a later slice of the port "
-            "brings; use rows_gather='take'")
+    landmark (pht_mode='rows'; P·Hᵀ = (H·P)ᵀ by symmetry).  The row pairs
+    are gathered by ``params.rows_gather``: 'take' (index_select) or
+    'pallas' (the pair-gather kernel, ops/kernels.pair_gather)."""
     D = x.shape[0]
     M = zs.shape[0]
     A, B, nu = _masked_blocks(x, zs, slots, valid, params, dt)
     rows = 3 + 2 * slots.to(torch.int64)
-    rp = (rows[:, None] + torch.arange(2, device=P.device)).reshape(-1)
-    Plm = P.index_select(0, rp).reshape(M, 2, D).to(dt)
+    Plm = gather_pairs(P, rows, params.rows_gather).reshape(M, 2, D).to(dt)
     Ppose = P[:3].to(dt)                                        # [3,D]
     HP = (torch.einsum("mij,jd->mid", A, Ppose)
           + torch.einsum("mij,mjd->mid", B, Plm)).reshape(2 * M, D)
@@ -161,10 +158,11 @@ def update_batch(state: FilterState, zs: torch.Tensor, slots: torch.Tensor,
         KB = mm(Kg, PHt.T)
         P.copy_(P - KB - KB.T + mm(Kg @ S, Kg.T))
     elif params.use_pallas and not fast16:
-        raise NotImplementedError(
-            "use_pallas=True runs the fused cov_update kernel (K4, "
-            "kernels.cov_update_pallas), which a later slice of the port "
-            "brings")
+        # the in-place correction kernel (batched.py:223-227); PHt.T is
+        # HP itself in rows mode, a transposed view in dense mode, which
+        # .contiguous() copies (D·2M elements) as the kernel takes no
+        # strides
+        cov_update(P, Kg.to(P.dtype), PHt.T.contiguous().to(P.dtype))
     else:
         P.sub_(mm(Kg, PHt.T))
     if params.symmetrize:

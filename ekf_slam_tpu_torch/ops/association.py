@@ -6,9 +6,9 @@ P's pose block, the pose↔landmark strip and the per-landmark 2×2 diagonal
 blocks, so the whole [M,K] cost plane is a handful of elementwise passes
 over [K]- and [M,K]-shaped tensors — one strip read of P.
 
-The fused gate kernel (``use_pallas=True``, gating.gate_costs_pallas in
-the JAX package) is the next slice of the port; until then that branch
-raises instead of quietly taking this path.
+``gate_batch(use_pallas=True)`` takes the cost plane from the fused gate
+kernel instead (ops/gating.py, the JAX package's gating.gate_costs_pallas),
+with that kernel's narrower contract.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 
 from ..config import ASSOC_ML, ASSOC_ML_UNIQUE, EKFParams, rounded
 from .angles import atan2d, wrap_to_180, wrap_to_360
+from .gating import gate_costs, strips_from_state
 
 
 def _exclusive(is_new: torch.Tensor, slot: torch.Tensor,
@@ -157,25 +158,46 @@ def gate_batch(state, zs: torch.Tensor, Rs: torch.Tensor, params: EKFParams,
 
     A slot associates iff its cost ≤ s_thresh; among passing slots the
     first minimum wins (torch.argmin returns the first occurrence, as
-    jnp.argmin does, Correspondence.m:78-86)."""
+    jnp.argmin does, Correspondence.m:78-86).
+
+    ``use_pallas``: the [M,K] costs come from the fused gate kernel
+    (ops/gating.gate_costs: the kernel on CUDA tensors, its plain version
+    on CPU tensors) instead of ``batch_costs``."""
     if use_pallas:
-        raise NotImplementedError("gate kernel: next slice")
-    position_cost, signature_cost = batch_costs(state, zs, Rs, params,
-                                                strips=strips)
-    if params.association in (ASSOC_ML, ASSOC_ML_UNIQUE):
-        cost = position_cost + signature_cost
+        # the fused gate kernel (ops/gating.py), held to the JAX branch
+        # (association.py:273-294): position + signature cost whatever
+        # params.association says, R's diagonal only, the det form,
+        # +inf from the kernel in inactive slots; ``strips`` is ignored
+        dt = state.x.dtype
+        lm, sig, act, prr, prl, pll = strips_from_state(state)
+        rdiag = torch.stack([Rs[:, 0, 0], Rs[:, 1, 1]], dim=-1).to(dt)
+        cost = gate_costs(state.x[:3], prr.to(dt), zs.to(dt), rdiag, lm,
+                          sig, act, prl.to(dt), pll.to(dt), params.s_cost,
+                          wrap_innovation=not params.ref_compat)
     else:
-        cost = signature_cost
+        position_cost, signature_cost = batch_costs(state, zs, Rs, params,
+                                                    strips=strips)
+        if params.association in (ASSOC_ML, ASSOC_ML_UNIQUE):
+            cost = position_cost + signature_cost
+        else:
+            cost = signature_cost
+        cost = torch.where(state.active[None, :], cost, float("inf"))
+    return _decide(cost, state.capacity, params, return_losers)
+
+
+def _decide(cost: torch.Tensor, K: int, params: EKFParams,
+            return_losers: bool) -> Tuple[torch.Tensor, ...]:
+    """Gate decisions from the [M,K] cost plane (+inf where inactive)."""
     inf = float("inf")
-    cost = torch.where(state.active[None, :], cost, inf)
     passes = cost <= params.s_thresh
     is_new = ~passes.any(dim=1)
     slot = torch.argmin(torch.where(passes, cost, inf),
                         dim=1).to(torch.int32)
     if params.association == ASSOC_ML_UNIQUE:
         best = cost.gather(1, slot[:, None].to(torch.int64))[:, 0]
-        out = _exclusive(is_new, slot, best, state.capacity)
+        out = _exclusive(is_new, slot, best, K)
         return out if return_losers else out[:2]
     if return_losers:
         return is_new, slot, torch.zeros_like(is_new)
     return is_new, slot
+

@@ -6,6 +6,14 @@ launch counters and the nvcc + ctypes loader.
   ekf_slam_tpu/ops/pallas/kernels.py ``syrk_downdate_pallas``).
 * ``score_lines`` — RANSAC inlier counts of NH lines over B points
   (csrc/score_lines.cu; replaces ``score_lines_pallas``).
+* ``cov_update`` — P ← P − K·V in place, any shape, ragged edges masked
+  (csrc/cov_update.cu; replaces ``cov_update_pallas``).
+* ``pair_gather`` — out[2i:2i+2] = P[starts[i]:starts[i]+2], starts read
+  on the device (csrc/pair_gather.cu; replaces ``pair_gather_pallas``).
+
+The fused gate kernel (csrc/gate_costs.cu, ``gating.gate_costs_pallas``
+in the JAX package) has its wrapper in ``ops/gating.py`` and is built and
+loaded here with the others.
 
 Each wrapper runs its kernel on CUDA tensors and its plain version
 (``*_ref``) on CPU tensors, and on nothing else: a CUDA tensor the kernel
@@ -15,7 +23,7 @@ the kernel launches.
 The kernels are compiled on first use, one ``nvcc`` per source started
 together, for ``sm_90a`` into ``build/torch_kernels/`` at the repository
 root (file names carry a hash of the source, so an edited source
-rebuilds), and loaded with ctypes: a plain C interface, no PyTorch
+rebuilds, as do changed flags), and loaded with ctypes: a plain C interface, no PyTorch
 headers.  Each launch goes on the tensor's current CUDA stream; the C
 function returns ``cudaGetLastError()`` and the wrapper raises if that is
 not 0.
@@ -35,9 +43,15 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _SOURCES = {"syrk_downdate": "syrk_downdate.cu",
-            "score_lines": "score_lines.cu"}
+            "score_lines": "score_lines.cu",
+            "gate_costs": "gate_costs.cu",
+            "cov_update": "cov_update.cu",
+            "pair_gather": "pair_gather.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# gate_costs rounds every product and sum on its own, as the plain
+# version's separate PyTorch kernels do, so the two agree to the bit
+_EXTRA_FLAGS = {"gate_costs": ["-fmad=false"]}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -53,12 +67,20 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = getattr(lib, name)
     fn.restype = ci
-    if name == "syrk_downdate":
+    fn.argtypes = {
         # (P, W, D, R, dtype code, vec_ok, stream)
-        fn.argtypes = [vp, vp, ci, ci, ci, ci, vp]
-    else:
+        "syrk_downdate": [vp, vp, ci, ci, ci, ci, vp],
         # (points, valid, lines, B, NH, thresh, out, stream)
-        fn.argtypes = [vp, vp, vp, ci, ci, ctypes.c_float, vp, vp]
+        "score_lines": [vp, vp, vp, ci, ci, ctypes.c_float, vp, vp],
+        # (pose, prr, zs, rdiag, lm, zphi, sig, active, prl, pll,
+        #  1/s_cost, wrap, M, K, out, stream)
+        "gate_costs": [vp] * 10 + [ctypes.c_float, ci, ci, ci, vp, vp],
+        # (P, K, V, N, D, R, stream)
+        "cov_update": [vp, vp, vp, ci, ci, ci, vp],
+        # (P, starts, starts are int64, pairs, rows, D, element bytes,
+        #  out, stream)
+        "pair_gather": [vp, vp, ci, ci, ci, ci, ci, vp, vp],
+    }[name]
 
 
 def build(names: Optional[Iterable[str]] = None) -> None:
@@ -69,15 +91,18 @@ def build(names: Optional[Iterable[str]] = None) -> None:
     for name in names or _SOURCES:
         if name not in _libs:
             src = _CSRC / _SOURCES[name]
-            digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-            todo[name] = (src, BUILD_DIR / f"lib{name}-{digest}.so")
+            flags = _NVCC_FLAGS + _EXTRA_FLAGS.get(name, [])
+            digest = hashlib.sha256(src.read_bytes() + " ".join(
+                flags).encode()).hexdigest()[:12]
+            todo[name] = (src, flags,
+                          BUILD_DIR / f"lib{name}-{digest}.so")
     procs = {}
-    for name, (src, so) in todo.items():
+    for name, (src, flags, so) in todo.items():
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             procs[name] = (tmp, subprocess.Popen(
-                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [_nvcc(), *flags, "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     # wait for every nvcc before raising, so none outlives a failed build
     outs = {name: proc.communicate()[0] for name, (_, proc) in procs.items()}
@@ -85,8 +110,8 @@ def build(names: Optional[Iterable[str]] = None) -> None:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {_SOURCES[name]}:\n"
                                f"{outs[name]}")
-        os.replace(tmp, todo[name][1])
-    for name, (_, so) in todo.items():
+        os.replace(tmp, todo[name][2])
+    for name, (_, _, so) in todo.items():
         lib = ctypes.CDLL(str(so))
         _bind(name, lib)
         _libs[name] = lib
@@ -96,6 +121,13 @@ def _lib(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build([name])
     return _libs[name]
+
+
+def _stream(device: torch.device) -> int:
+    """Handle of PyTorch's current CUDA stream on ``device``: every launch
+    goes there.  The launch itself is made under
+    ``torch.cuda.device(device)``, so it reaches that device's context."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _launch_check(name: str, err: int) -> None:
@@ -149,9 +181,9 @@ def syrk_downdate(P: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
                  and P.data_ptr() % 16 == 0)
     lib = _lib("syrk_downdate")
     with torch.cuda.device(P.device):
-        stream = torch.cuda.current_stream(P.device).cuda_stream
         err = lib.syrk_downdate(P.data_ptr(), W.data_ptr(), D, R,
-                                _SYRK_DTYPES[P.dtype], vec_ok, stream)
+                                _SYRK_DTYPES[P.dtype], vec_ok,
+                                _stream(P.device))
     _launch_check("syrk_downdate", err)
     syrk_downdate.launches += 1
     return P
@@ -202,13 +234,128 @@ def score_lines(points: torch.Tensor, valid: torch.Tensor,
         return out
     lib = _lib("score_lines")
     with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream(points.device).cuda_stream
         err = lib.score_lines(points.data_ptr(), valid.data_ptr(),
                               lines.data_ptr(), B, NH, float(thresh),
-                              out.data_ptr(), stream)
+                              out.data_ptr(), _stream(points.device))
     _launch_check("score_lines", err)
     score_lines.launches += 1
     return out
 
 
 score_lines.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4 · rank-R covariance correction P ← P − K·V
+# ---------------------------------------------------------------------------
+
+def cov_update_ref(P: torch.Tensor, K: torch.Tensor, V: torch.Tensor
+                   ) -> torch.Tensor:
+    """Plain version: P − K·V as a new tensor."""
+    return P - K @ V
+
+
+def cov_update(P: torch.Tensor, K: torch.Tensor, V: torch.Tensor
+               ) -> torch.Tensor:
+    """P ← P − K·V IN PLACE (the JAX kernel aliases P to its output,
+    kernels.py:90); returns P.  P [N,D], K [N,R], V [R,D], all of one
+    dtype, float32 for the kernel.  All three must be contiguous: the
+    kernel takes no strides, so a caller holding a transposed view (the
+    dense-mode V = (P·Hᵀ)ᵀ) passes ``.contiguous()``.  Any N, D and R: the
+    kernel masks the ragged edge, so nothing is padded."""
+    _require(P.dim() == 2 and K.dim() == 2 and V.dim() == 2,
+             "P, K and V must be matrices")
+    _require(K.shape[0] == P.shape[0] and V.shape == (K.shape[1], P.shape[1]),
+             f"shapes P {tuple(P.shape)}, K {tuple(K.shape)}, "
+             f"V {tuple(V.shape)} do not chain as P − K·V")
+    _require(K.dtype == P.dtype and V.dtype == P.dtype,
+             f"K/V dtypes {K.dtype}/{V.dtype} != P dtype {P.dtype}")
+    _require(P.device == K.device == V.device,
+             "P, K and V must be on one device")
+    if P.device.type == "cpu":
+        P.copy_(cov_update_ref(P, K, V))
+        return P
+    _require(P.device.type == "cuda",
+             f"cov_update runs on CUDA or CPU tensors, not {P.device}")
+    _require(P.dtype == torch.float32,
+             f"the cov_update kernel takes float32, not {P.dtype}")
+    _require(P.is_contiguous() and K.is_contiguous() and V.is_contiguous(),
+             "cov_update needs contiguous P, K and V")
+    (N, D), R = P.shape, K.shape[1]
+    if N == 0 or D == 0 or R == 0:
+        return P
+    lib = _lib("cov_update")
+    with torch.cuda.device(P.device):
+        err = lib.cov_update(P.data_ptr(), K.data_ptr(), V.data_ptr(), N, D,
+                             R, _stream(P.device))
+    _launch_check("cov_update", err)
+    cov_update.launches += 1
+    return P
+
+
+cov_update.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5 · row-pair gather
+# ---------------------------------------------------------------------------
+
+def pair_gather_ref(P: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """Plain version: out[2i:2i+2] = P[s_i:s_i+2] with s_i = starts[i]
+    clamped into [0, rows − 2] (the kernel's guard)."""
+    s = torch.clamp(starts.to(torch.int64), 0, P.shape[0] - 2)
+    return P.index_select(0, (s[:, None] + torch.arange(
+        2, device=s.device)).reshape(-1))
+
+
+_GATHER_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def pair_gather(P: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """Row pairs [2·len(starts), D] of P (kernel on CUDA, plain version on
+    CPU).  float32 or bfloat16 P of any shape with at least 2 rows; starts
+    int32 or int64, read by the kernel on the device (no host copy).  A
+    start outside [0, rows − 2] is clamped into it, so the kernel never
+    reads outside P."""
+    _require(P.dim() == 2 and P.shape[0] >= 2,
+             f"P must be a matrix of at least 2 rows, got {tuple(P.shape)}")
+    _require(starts.dim() == 1
+             and starts.dtype in (torch.int32, torch.int64),
+             "starts must be int32 or int64 [pairs]")
+    _require(P.device == starts.device, "P and starts must be on one device")
+    if P.device.type == "cpu":
+        return pair_gather_ref(P, starts)
+    _require(P.device.type == "cuda",
+             f"pair_gather runs on CUDA or CPU tensors, not {P.device}")
+    _require(P.dtype in _GATHER_BYTES,
+             f"the pair_gather kernel takes float32 or bfloat16, "
+             f"not {P.dtype}")
+    _require(P.is_contiguous() and starts.is_contiguous(),
+             "pair_gather needs contiguous P and starts")
+    (rows, D), pairs = P.shape, starts.shape[0]
+    out = torch.empty((2 * pairs, D), dtype=P.dtype, device=P.device)
+    if pairs == 0 or D == 0:
+        return out
+    lib = _lib("pair_gather")
+    with torch.cuda.device(P.device):
+        err = lib.pair_gather(P.data_ptr(), starts.data_ptr(),
+                              int(starts.dtype == torch.int64), pairs, rows,
+                              D, _GATHER_BYTES[P.dtype], out.data_ptr(),
+                              _stream(P.device))
+    _launch_check("pair_gather", err)
+    pair_gather.launches += 1
+    return out
+
+
+pair_gather.launches = 0
+
+
+def gather_pairs(P: torch.Tensor, starts: torch.Tensor, mode: str
+                 ) -> torch.Tensor:
+    """The rows-mode gather (``mode`` is ``EKFParams.rows_gather``):
+    'pallas' runs the pair-gather kernel, 'take' ``index_select``."""
+    if mode == "pallas":
+        return pair_gather(P, starts)
+    rp = (starts.to(torch.int64)[:, None]
+          + torch.arange(2, device=P.device)).reshape(-1)
+    return P.index_select(0, rp)

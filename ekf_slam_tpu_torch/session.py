@@ -21,9 +21,12 @@ given explicit draws ``(u, s)`` — the JAX package draws them from
 threefry, which torch cannot reproduce, so parity runs hand the JAX
 draws in.
 
-Only the batched odometry-driven session is ported in this slice: the
-other update modes, ICP/fused control, the fault guard and map
-maintenance raise NotImplementedError.
+Only the batched odometry-driven session is ported so far, on two paths:
+the tuned schedule (utils/schedule.tuned_params: rows, bf16 P, the SYRK
+kernel) and the kernel path (``use_pallas=True, rows_gather='pallas',
+correction='gemm'``: the fused gate, row-pair gather and in-place
+correction kernels).  The other update modes, ICP/fused control, the
+fault guard and map maintenance raise NotImplementedError.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-"""ekf_slam_tpu_torch batched association (gate_batch, batch_costs and
-the ml_unique exclusion) against ekf_slam_tpu at float64: equal
-is_new/slot/loser masks, cost planes within 1e-10 relative."""
+"""ekf_slam_tpu_torch batched association (gate_batch on the plain and the
+fused-gate-kernel branch, batch_costs and the ml_unique exclusion)
+against ekf_slam_tpu at float64: equal is_new/slot/loser masks, cost
+planes within 1e-10 relative."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -83,12 +84,47 @@ def test_batch_costs_match(rng, noise_model, ref_compat):
 
 
 def test_gate_kernel_branch_raises(rng):
-    p = port(jc.EKFParams(capacity=12, dtype=jnp.float64, association="ml"))
-    ts = torch_state(jax_state(random_state(rng)))
-    zs = torch.zeros((4, 3), dtype=torch.float64)
-    Rs = torch.eye(2, dtype=torch.float64).expand(4, 2, 2)
-    with pytest.raises(NotImplementedError, match="gate kernel"):
-        tas.gate_batch(ts, zs, Rs, p, use_pallas=True)
+    """Named for the NotImplementedError the use_pallas branch raised
+    before the fused gate kernel was ported.  It raises no more: under
+    association='ml' it takes the same decisions as the JAX branch, whose
+    Pallas kernel runs in interpret mode here."""
+    p = jc.EKFParams(capacity=12, dtype=jnp.float64, association="ml",
+                     s_thresh=30.0, ref_compat=False)
+    js = jax_state(random_state(rng, K=12, n_active=8))
+    zs, Rs = _batch(rng, js)
+    want = jas.gate_batch(js, jnp.asarray(zs), jnp.asarray(Rs), p,
+                          use_pallas=True)
+    got = tas.gate_batch(torch_state(js), torch.from_numpy(zs),
+                         torch.from_numpy(Rs), port(p), use_pallas=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(n(g), n(w))
+    assert not n(got[0]).all()                 # some observations gated
+
+
+@pytest.mark.parametrize("association", ["signature", "ml_unique"])
+@pytest.mark.parametrize("noise_model", ["scaled", "fit"])
+@pytest.mark.parametrize("return_losers", [False, True])
+def test_gate_batch_kernel_branch_matches(rng, association, noise_model,
+                                          return_losers):
+    """use_pallas=True against the JAX branch: the cost is position +
+    signature even under association='signature', R's off-diagonal is
+    dropped even under noise_model='fit', and ml_unique's losers are the
+    same."""
+    p = jc.EKFParams(capacity=12, dtype=jnp.float64,
+                     association=association, noise_model=noise_model,
+                     ref_compat=False, s_thresh=30.0)
+    js = jax_state(random_state(rng, K=12, n_active=8))
+    zs, Rs = _batch(rng, js, noise_model=noise_model)
+    want = jas.gate_batch(js, jnp.asarray(zs), jnp.asarray(Rs), p,
+                          use_pallas=True, return_losers=return_losers)
+    got = tas.gate_batch(torch_state(js), torch.from_numpy(zs),
+                         torch.from_numpy(Rs), port(p), use_pallas=True,
+                         return_losers=return_losers)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(n(g), n(w))
+    if association == "ml_unique" and return_losers:
+        assert n(got[2]).any()          # the doubled observation lost
 
 
 def test_exclusive_matches(rng):

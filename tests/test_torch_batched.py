@@ -2,7 +2,8 @@
 measure_batched) against ekf_slam_tpu: the gemm and syrk corrections in
 dense and rows modes on a padded state at float64 (x and P within 1e-10
 relative), the bf16-storage forms within a stated tolerance, and the
-branches whose kernels a later slice ports raise."""
+kernel path (use_pallas, rows_gather='pallas', gemm correction) on an
+unpadded state at float64."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -174,9 +175,61 @@ def test_innovation_operator_and_noise_block_match(rng):
     (dict(pht_mode="rows", rows_gather="pallas"), "pair-gather"),
     (dict(use_pallas=True), "cov_update")])
 def test_branches_of_later_kernels_raise(rng, kw, match):
-    p = port(_params(**kw))
-    ts = torch_state(jax_state(random_state(rng)))
-    zs, slots, Rs, valid, _ = _obs(rng, jax_state(random_state(rng)))
-    with pytest.raises(NotImplementedError, match=match):
-        tb.update_batch(ts, *map(torch.from_numpy, (zs, slots, Rs, valid)),
-                        p)
+    """Named for the NotImplementedError these two branches raised before
+    their kernels (K5 the pair gather, K4 cov_update) were ported.  They
+    raise no more: update_batch through each matches JAX at f64 on an
+    unpadded state (D = 27), the kernels' plain versions standing in for
+    them on the CPU."""
+    p = _params(**kw)
+    js = jax_state(random_state(rng))
+    args = _obs(rng, js, n_new=0)[:4]
+    want = jax.jit(jb.update_batch, static_argnums=5)(
+        js, *map(jnp.asarray, args), p)
+    got = tb.update_batch(torch_state(js), *map(torch.from_numpy, args),
+                          port(p))
+    assert got.P.shape == (27, 27)
+    assert max_rel(got.x, want.x) <= 1e-10
+    assert max_rel(got.P, want.P) <= 1e-10
+
+
+@pytest.mark.parametrize("pht_mode", ["dense", "rows"])
+@pytest.mark.parametrize("chunks", [1, 2])
+def test_update_kernel_path_matches(rng, pht_mode, chunks):
+    """The kernel path (use_pallas with the gemm correction, and in rows
+    mode rows_gather='pallas'): cov_update receives HP itself in rows mode
+    and a copy of the transposed PHᵀ in dense mode."""
+    kw = dict(rows_gather="pallas") if pht_mode == "rows" else {}
+    p = _params(pht_mode=pht_mode, correction="gemm", use_pallas=True,
+                update_chunks=chunks, **kw)
+    js = jax_state(random_state(rng))
+    args = _obs(rng, js, M=7, n_new=0)[:4]
+    want = jax.jit(jb.update_chunked, static_argnums=5)(
+        js, *map(jnp.asarray, args), p)
+    got = tb.update_chunked(torch_state(js), *map(torch.from_numpy, args),
+                            port(p))
+    assert max_rel(got.x, want.x) <= 1e-10
+    assert max_rel(got.P, want.P) <= 1e-10
+
+
+@pytest.mark.parametrize("association", ["signature", "ml_unique"])
+def test_measure_batched_kernel_path_matches(rng, association):
+    """Gate through the fused-gate kernel's plain version, the update
+    through the pair gather and cov_update, then the appends."""
+    p = _params(pht_mode="rows", correction="gemm", use_pallas=True,
+                rows_gather="pallas", association=association,
+                s_thresh=30.0 if association == "ml_unique" else 1e9)
+    js = jax_state(random_state(rng, K=12, n_active=8))
+    zs, slots, Rs, valid, locs = _obs(rng, js, M=6, n_new=2)
+    jo = JObs(rng=jnp.asarray(zs[:, 0]), bearing=jnp.asarray(zs[:, 1]),
+              index=jnp.asarray(zs[:, 2].astype(np.int32)),
+              loc=jnp.asarray(locs), valid=jnp.asarray(valid))
+    to = TObs(*(None if v is None else t(v) for v in jo))
+    u = np.array([0.05, 3.0])
+    want = jax.jit(jb.measure_batched, static_argnums=3)(
+        js, jo, jnp.asarray(u), p)
+    got = tb.measure_batched(torch_state(js), to, torch.from_numpy(u),
+                             port(p))
+    assert int(got.n_active) == int(want.n_active)
+    np.testing.assert_array_equal(n(got.active), n(want.active))
+    assert max_rel(got.x, want.x) <= 1e-10
+    assert max_rel(got.P, want.P) <= 1e-10

@@ -1,4 +1,7 @@
-"""The port's CUDA kernels on the card, held against their plain versions.
+"""The port's CUDA kernels on the card (K1 syrk_downdate, K2 gate_costs,
+K3 score_lines, K4 cov_update, K5 pair_gather), held against their plain
+versions, and the tuned and kernel-path sessions on the card against the
+CPU.
 
 Marked ``cuda``: each test skips, with its reason, where torch sees no
 CUDA device, as on a CPU-only machine.  On a GPU machine (which need not
@@ -10,7 +13,9 @@ This file imports neither JAX nor ekf_slam_tpu."""
 import pytest
 import torch
 
-from ekf_slam_tpu_torch.checks import score_lines_case, session_on_devices
+from ekf_slam_tpu_torch.checks import (gate_case, pair_starts,
+                                       score_lines_case, session_on_devices)
+from ekf_slam_tpu_torch.ops import gating as G
 from ekf_slam_tpu_torch.ops import kernels as K
 
 pytestmark = pytest.mark.cuda
@@ -62,8 +67,95 @@ def test_score_lines_kernel_matches_plain(dev):
     assert torch.equal(got, K.score_lines_ref(pts, valid, lines, thresh))
 
 
+@pytest.mark.parametrize("M,K_,wrap", [(8, 3000, True), (300, 700, True),
+                                       (8, 257, False)])
+def test_gate_kernel_matches_plain(dev, M, K_, wrap):
+    """+inf in exactly the inactive slots; elsewhere within 1e-5 relative
+    of the plain version (built without FMA contraction, the kernel rounds
+    as the plain version's PyTorch kernels do), entries within 1e-4° of
+    the wrap's seam left out."""
+    g = torch.Generator(device=dev).manual_seed(M + K_)
+    args, keep = gate_case(g, M, K_)
+    active = args[6]
+    want = G.gate_costs_ref(*args, 1e6, wrap)
+    before = G.gate_costs.launches
+    got = G.gate_costs(*args, 1e6, wrap)
+    torch.cuda.synchronize()
+    assert G.gate_costs.launches == before + 1
+    assert got.shape == (M, K_) and got.dtype == torch.float32
+    assert torch.isinf(got[:, ~active]).all()
+    assert torch.isfinite(got[:, active]).all()
+    ok = keep & active[None, :]
+    rel = ((got - want).abs() / want.abs())[ok]
+    assert rel.max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("N,D,R", [(1003, 1003, 16), (777, 1029, 40),
+                                   (64, 64, 1)])
+def test_cov_update_kernel_matches_plain(dev, N, D, R):
+    """In place; ragged edges on both axes; within 1e-5 of max|P| of the
+    plain version (f32 sums in other orders)."""
+    g = torch.Generator(device=dev).manual_seed(N + D + R)
+    P = torch.randn((N, D), generator=g, device=dev)
+    Kg = torch.randn((N, R), generator=g, device=dev)
+    V = torch.randn((R, D), generator=g, device=dev) * 0.1
+    want = K.cov_update_ref(P, Kg, V)
+    before = K.cov_update.launches
+    got = K.cov_update(P, Kg, V)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == P.data_ptr()
+    assert K.cov_update.launches == before + 1
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+def test_pair_gather_kernel_matches_plain(dev, dtype, idx):
+    """Bit-equal to index_select, with duplicate, unordered and
+    last-row-pair starts, on an odd width."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    P = torch.randn((1003, 1003), generator=g, device=dev).to(dtype)
+    starts = pair_starts(P.shape[0], dev, idx)
+    before = K.pair_gather.launches
+    got = K.pair_gather(P, starts)
+    assert K.pair_gather.launches == before + 1
+    rows = (starts.long()[:, None] + torch.arange(2, device=dev)).reshape(-1)
+    assert torch.equal(got, P.index_select(0, rows))
+
+
+def test_pair_gather_kernel_clamps_out_of_range_starts(dev):
+    """The guard: starts below 0 or above rows − 2 read the first or the
+    last row pair, as the plain version's clamp does; nothing outside P is
+    read (the synchronize would surface a fault)."""
+    P = torch.arange(9 * 130, dtype=torch.float32, device=dev).reshape(9, 130)
+    starts = torch.tensor([-3, 8, 1 << 30, 7, -1], device=dev)
+    got = K.pair_gather(P, starts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.pair_gather_ref(P, starts))
+    assert torch.equal(got[2:4], P[7:9]) and torch.equal(got[:2], P[:2])
+
+
+def test_kernel_path_session_on_card_matches_cpu(dev):
+    """A small kernel-path session (fused gate, pair gather, cov_update),
+    f32, the same draws on both devices: the same landmark count every
+    tick, poses within 1e-3 m/deg."""
+    from ekf_slam_tpu_torch import EKFParams, RansacParams
+    ep = EKFParams(capacity=64, max_obs=8, ref_compat=False,
+                   update_mode="batched", pht_mode="rows",
+                   rows_gather="pallas", correction="gemm", use_pallas=True)
+    rp = RansacParams(line_consensus=30, bearing_window_deg=15.0,
+                      wall_search_timeout=4, table_capacity=64,
+                      promote_count=5, ref_compat=False, n_hypotheses=32)
+    outs = session_on_devices(ep, rp, 16, 512, ("cuda", "cpu"))
+    assert torch.equal(outs["cuda"].n_active.cpu(), outs["cpu"].n_active)
+    assert int(outs["cpu"].n_active[-1]) > 0
+    assert (outs["cuda"].pose.cpu() - outs["cpu"].pose).abs().max() <= 1e-3
+
+
 @pytest.mark.parametrize("which", ["syrk_f64", "syrk_strided",
-                                   "score_f64"])
+                                   "score_f64", "gate_f64", "gate_strided",
+                                   "cov_f64", "cov_strided", "gather_f64"])
 def test_wrappers_raise_on_cuda_inputs_the_kernels_do_not_take(dev, which):
     """A CUDA tensor the kernel does not take raises; nothing falls back
     to the plain version."""
@@ -75,11 +167,29 @@ def test_wrappers_raise_on_cuda_inputs_the_kernels_do_not_take(dev, which):
         elif which == "syrk_strided":
             P = torch.eye(128, device=dev)[::2, ::2]
             K.syrk_downdate(P, torch.zeros((64, 4), device=dev))
-        else:
+        elif which == "score_f64":
             K.score_lines(torch.zeros((8, 2), device=dev, dtype=torch.float64),
                           torch.ones(8, device=dev, dtype=torch.bool),
                           torch.zeros((2, 2), device=dev,
                                       dtype=torch.float64), 0.25)
+        elif which.startswith("gate"):
+            g = torch.Generator(device=dev).manual_seed(0)
+            args = list(gate_case(g, 4, 64)[0])
+            if which == "gate_f64":
+                args[8] = args[8].double()
+            else:
+                args[7] = torch.zeros((6, 64), device=dev).T
+            G.gate_costs(*args, 1.0)
+        elif which.startswith("cov"):
+            P = torch.zeros((64, 64), device=dev)
+            Kg, V = torch.zeros((64, 4), device=dev), torch.zeros((64, 4),
+                                                                   device=dev)
+            if which == "cov_f64":
+                P, Kg, V = P.double(), Kg.double(), V.double()
+            K.cov_update(P, Kg, V.T)
+        else:
+            K.pair_gather(torch.zeros((8, 8), device=dev, dtype=torch.float64),
+                          torch.zeros(2, device=dev, dtype=torch.int64))
 
 
 def test_session_on_card_matches_cpu(dev):

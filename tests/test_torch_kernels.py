@@ -1,6 +1,7 @@
-"""The plain versions of the port's two CUDA kernels against the JAX
-package's Pallas kernels run in interpret mode, and the wrappers' CPU
-behaviour and input checks.  The CUDA kernels themselves have no
+"""The plain versions of the port's CUDA kernels in ops/kernels.py (K1
+syrk_downdate, K3 score_lines, K4 cov_update, K5 pair_gather) against
+the JAX package's Pallas kernels run in interpret mode, and the wrappers'
+CPU behaviour and input checks.  The CUDA kernels themselves have no
 interpret mode: chip_smoke.py builds them on the GPU and holds each one
 against these plain versions there."""
 import pathlib
@@ -149,10 +150,111 @@ def test_score_lines_wrapper_rejects_bad_inputs(bad):
         tk.score_lines(pts, valid, lines, 0.25)
 
 
+@pytest.mark.parametrize("D,R,dtype,tol", [(27, 16, np.float64, 1e-12),
+                                            (301, 16, np.float64, 1e-12),
+                                            (301, 40, np.float32, 1e-5)])
+def test_cov_update_ref_matches_pallas(rng, D, R, dtype, tol):
+    """Odd D, so the TPU kernel's edge tiles are ragged; P − K·V within
+    ``tol`` of max|P| (f32: the products sum in other orders)."""
+    P, K, V = (_sym(rng, D).astype(dtype),
+               rng.normal(0, 1, (D, R)).astype(dtype),
+               rng.normal(0, 1, (R, D)).astype(dtype))
+    want = n(jk.cov_update_pallas(jnp.asarray(P), jnp.asarray(K),
+                                  jnp.asarray(V), interpret=True))
+    got = tk.cov_update_ref(*map(torch.from_numpy, (P, K, V)))
+    assert got.dtype == torch.from_numpy(P).dtype
+    assert np.abs(n(got) - want).max() <= tol * np.abs(want).max()
+
+
+def test_cov_update_wrapper_updates_cpu_tensor_in_place(rng):
+    P = torch.from_numpy(_sym(rng, 33))
+    K = torch.from_numpy(rng.normal(0, 1, (33, 6)))
+    V = torch.from_numpy(rng.normal(0, 1, (6, 33)))
+    want = P - K @ V
+    ptr, before = P.data_ptr(), tk.cov_update.launches
+    out = tk.cov_update(P, K, V)
+    assert out.data_ptr() == ptr == P.data_ptr()
+    assert torch.equal(P, want)
+    assert tk.cov_update.launches == before        # no kernel on the CPU
+
+
+@pytest.mark.parametrize("bad", ["k_rows", "v_shape", "v_dtype", "devices",
+                                 "not_matrix"])
+def test_cov_update_wrapper_rejects_bad_inputs(bad):
+    P, K, V = torch.zeros((8, 8)), torch.zeros((8, 2)), torch.zeros((2, 8))
+    if bad == "k_rows":
+        K = torch.zeros((7, 2))
+    elif bad == "v_shape":
+        V = torch.zeros((3, 8))
+    elif bad == "v_dtype":
+        V = V.double()
+    elif bad == "devices":
+        V = V.to("meta")
+    else:
+        P = torch.zeros(64)
+    with pytest.raises(ValueError):
+        tk.cov_update(P, K, V)
+
+
+@pytest.mark.parametrize("dtype,rows", [(jnp.float32, 64),
+                                        (jnp.bfloat16, 64),
+                                        (jnp.float64, 48)])
+def test_pair_gather_ref_matches_pallas(rng, dtype, rows):
+    """Bit-equal rows, with duplicate, unordered, window-straddling
+    (start ≡ 7 mod 8) and last-row-pair starts, at shapes where the TPU
+    kernel runs instead of falling back (rows % tile, width % 128,
+    pairs % tile/2)."""
+    P = jnp.asarray(rng.normal(0, 1, (rows, 256))).astype(dtype)
+    starts = np.array([5, 7, 0, rows - 2, 5, 22, 15, 9], np.int32)
+    want = n(jk.pair_gather_pallas(P, jnp.asarray(starts), interpret=True))
+    got = tk.pair_gather_ref(t(P), torch.from_numpy(starts))
+    np.testing.assert_array_equal(n(got), want)
+    np.testing.assert_array_equal(
+        want, n(jk.pair_gather_ref(P, jnp.asarray(starts))))
+    before = tk.pair_gather.launches
+    np.testing.assert_array_equal(
+        n(tk.pair_gather(t(P), torch.from_numpy(starts))), want)
+    assert tk.pair_gather.launches == before       # no kernel on the CPU
+
+
+def test_pair_gather_clamps_out_of_range_starts():
+    """The guard the kernel shares with its plain version: a start
+    outside [0, rows − 2] is clamped into it, never read past P."""
+    P = torch.arange(5 * 3, dtype=torch.float32).reshape(5, 3)
+    got = tk.pair_gather(P, torch.tensor([-4, 9, 4, 3]))
+    np.testing.assert_array_equal(got.numpy(), P[[0, 1, 3, 4, 3, 4, 3, 4]])
+
+
+@pytest.mark.parametrize("mode", ["take", "pallas"])
+def test_gather_pairs_modes_agree(rng, mode):
+    P = torch.from_numpy(_sym(rng, 35))
+    rows = torch.tensor([3, 33, 9, 3], dtype=torch.int64)
+    want = P[[3, 4, 33, 34, 9, 10, 3, 4]]
+    assert torch.equal(tk.gather_pairs(P, rows, mode), want)
+
+
+@pytest.mark.parametrize("bad", ["one_row", "starts_float", "starts_2d",
+                                 "devices"])
+def test_pair_gather_wrapper_rejects_bad_inputs(bad):
+    P, starts = torch.zeros((6, 4)), torch.tensor([0, 2])
+    if bad == "one_row":
+        P = torch.zeros((1, 4))
+    elif bad == "starts_float":
+        starts = starts.float()
+    elif bad == "starts_2d":
+        starts = starts[:, None]
+    else:
+        starts = starts.to("meta")
+    with pytest.raises(ValueError):
+        tk.pair_gather(P, starts)
+
+
 def test_kernel_sources_export_the_bound_symbols():
     """The ctypes binding names one extern "C" entry point per source."""
+    assert len(tk._SOURCES) == 5
     for name, src in tk._SOURCES.items():
         text = (ROOT / "ekf_slam_tpu_torch" / "csrc" / src).read_text()
         assert f'extern "C" int {name}(' in text
         assert "cudaGetLastError()" in text
+        assert "ekf_slam_tpu/ops/pallas/" in text     # names what it replaces
     assert tk.BUILD_DIR == ROOT / "build" / "torch_kernels"

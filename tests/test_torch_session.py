@@ -2,9 +2,10 @@
 ekf_slam_tpu's on the CPU.
 
 Both sessions run the batched odometry-driven tick (rows P·Hᵀ + SYRK
-correction, batched-hypothesis extractor) over the same simulated
-sequence.  The JAX session draws its extractor randomness from threefry;
-the port is handed exactly those draws (session.py:320 then
+correction, batched-hypothesis extractor; and the kernel path: fused
+gate, pair gather, gemm correction through cov_update) over the same
+simulated sequence.  The JAX session draws its extractor randomness from
+threefry; the port is handed exactly those draws (session.py:320 then
 ransac.py:314-325), so the two runs take the same decisions tick by
 tick.  Also: the simulator's noise-free ray cast, the padded initial
 carry, and the modes this slice does not port."""
@@ -58,10 +59,10 @@ def jax_draws(seed: int, ticks: int):
     return out
 
 
-def _params(dtype, cov_dtype=None):
+def _params(dtype, cov_dtype=None, correction="syrk", **ekf_kw):
     ep = jc.EKFParams(capacity=16, max_obs=8, ref_compat=False,
                       update_mode="batched", dtype=dtype, pht_mode="rows",
-                      correction="syrk", cov_dtype=cov_dtype)
+                      correction=correction, cov_dtype=cov_dtype, **ekf_kw)
     rp = jc.RansacParams(line_consensus=20, bearing_window_deg=20.0,
                          sample_points=8, wall_search_timeout=4,
                          table_capacity=32, promote_count=2,
@@ -69,8 +70,8 @@ def _params(dtype, cov_dtype=None):
     return ep, rp
 
 
-def _run_both(traj, dtype, cov_dtype=None, collect_nis=False):
-    ep, rp = _params(dtype, cov_dtype)
+def _run_both(traj, dtype, cov_dtype=None, collect_nis=False, **ekf_kw):
+    ep, rp = _params(dtype, cov_dtype, **ekf_kw)
     js = JSession(ekf_params=ep, ransac_params=rp, seed=SEED,
                   collect_nis=collect_nis)
     c0 = js.init_carry(first_odom=traj.odom[0])
@@ -112,6 +113,20 @@ def test_session_parity_f64(traj):
     for f in ("observe", "index", "fresh", "used"):
         np.testing.assert_array_equal(n(getattr(tc_.table, f)),
                                       n(getattr(jc_.table, f)), err_msg=f)
+
+
+def test_session_parity_kernel_path_f64(traj):
+    """The kernel path (use_pallas, rows_gather='pallas', gemm correction,
+    unpadded P) at f64, the kernels' plain versions standing in for them
+    on the CPU and the JAX Pallas kernels in interpret mode: per-tick pose
+    ≤ 1e-9, every decision equal, final x and P ≤ 1e-9 relative."""
+    (jc_, jo), (tc_, to) = _run_both(traj, jnp.float64, correction="gemm",
+                                     use_pallas=True, rows_gather="pallas")
+    _same_decisions(jo, to)
+    assert np.abs(n(to.pose) - n(jo.pose)).max() <= 1e-9
+    assert max_rel(tc_.filt.x, jc_.filt.x) <= 1e-9
+    assert max_rel(tc_.filt.P, jc_.filt.P) <= 1e-9
+    assert tc_.filt.P.shape == (35, 35)         # not padded under gemm
 
 
 def test_session_parity_bf16_storage(traj):
