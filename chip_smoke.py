@@ -6,7 +6,7 @@ NVIDIA H100.
 
 Phases (each prints one line; any failure exits non-zero with no result):
 
-1. build the five CUDA kernels from ekf_slam_tpu_torch/csrc (one nvcc per
+1. build the six CUDA kernels from ekf_slam_tpu_torch/csrc (one nvcc per
    source, started together) and print the card's name and power limit;
 2. K1 syrk_downdate against its plain version: bf16 at D = 20480, R = 16
    (≤ 1 bf16 ulp of |P|max, output bit-symmetric) and f32 at D = 1003
@@ -19,12 +19,22 @@ Phases (each prints one line; any failure exits non-zero with no result):
    and D = 1003, f32 (in place, ≤ 1e-5 of |P|max), K5 pair_gather on f32
    and bf16 P with duplicate, unordered and last-row-pair starts
    (bit-equal to index_select) and with out-of-range starts (clamped),
-   each against its plain version;
-5. the session on the card against the same session on the CPU
-   (capacity 256, f32 P, 32 ticks, the same draws), for the tuned path
-   (rows + syrk) and the kernel path (rows, pair gather, fused gate, gemm
-   correction through cov_update): n_active equal every tick, pose within
-   1e-3;
+   K6 syrk_gram at D = R = 20067 f32, D = 1003 by R = 1500 f32, and bf16
+   and f64 at D = 517 (≤ 1e-5 of |G|max, 1e-12 at f64; bit-symmetric; the
+   accumulation dtype), each against its plain version;
+5. the session on the card against the same session on the CPU (the same
+   draws), for the tuned path (rows + syrk) and the kernel path (rows,
+   pair gather, fused gate, gemm correction through cov_update), capacity
+   256, f32 P, 32 ticks, and for the square-root path (update_mode=
+   'srekf_fast', pair gather, capacity 256, 80 ticks, a 16-column noise
+   buffer so five recompressions run): n_active equal every tick, pose
+   within 1e-3 (m and degrees; on the square-root path's 80 ticks, m and
+   radians, beside the CPU's own f32-against-f64 gap, since the extractor's
+   f32 rounding of wall bearings moves the heading by ~1e-2 degrees); then
+   the recompression's QR branch on a factor whose Gram
+   is singular, on the card and on the CPU (the Cholesky gives NaN, the
+   QR branch's result is taken, finite, lower triangular, within 1e-4 of
+   the CPU's);
 6. the tuned path at full width: the 10k-landmark batched session
    (D = 20480 padded, bf16 P, rows + syrk) for 64 ticks of the flagship
    simulator run, with every kernel counter set to 0 just before and read
@@ -40,14 +50,33 @@ Phases (each prints one line; any failure exits non-zero with no result):
    launch each of K2, K4 and K5 and 1 + wall_search_timeout of K3 per
    tick, no K1 launch, no host sync in a tick; the median tick time and a
    torch.profiler line;
+7b. the square-root path at full width: update_mode='srekf_fast' with
+   rows_gather='pallas' at capacity 10000 (S (20067, 20067) f32:
+   3 + 2·10000 + 64 noise-buffer dims, unpadded) for 72 ticks, so the 64th
+   recompresses, counters set to 0 just before and read just after:
+   finite state, landmarks mapped, ATE < 0.5 m, one K5 and
+   1 + wall_search_timeout K3 launches per tick and no K1, K2, K4 or K6
+   launch, no host sync on an ordinary tick and exactly one on the
+   recompression tick, S lower triangular with its 64 buffer columns
+   exactly 0 after the recompression; the median ordinary tick, the
+   recompression tick and a torch.profiler line.  Then K6 on the factor
+   the recompression was handed: one launch, within 1e-5 of |S·Sᵀ|max,
+   bit-symmetric, and the blocked Cholesky of its Gram within 1e-3 of the
+   session's recompressed factor on the active block;
 8. each kernel timed at its path's shapes (CUDA-graph replays between
-   CUDA events) beside its plain version, its library yardstick and its
-   roofline bound.
+   CUDA events; K6, ~0.3 s a call, 3 calls between CUDA events after one
+   warm-up) beside its plain version, its library yardstick and its
+   roofline bound; and the blocked Cholesky and the whole recompression
+   at D = 20067.
 
 The last lines are the kernels JSON, the card's name and power limit, and
-{"ok": true, "device": {...}}.  This script imports nothing of JAX or of
+{"ok": true, "device": {...}}.  A kernel's `launches` in the JSON is its
+count from its path's run.  K6's is 0, since no session launches it, so
+its entry also has `on_path: false` and `side_call_launches`, the launch
+on the recompression's factor in phase 7b.  This script imports nothing of JAX or of
 ekf_slam_tpu.
 """
+import dataclasses
 import json
 import math
 import os
@@ -68,7 +97,7 @@ F32_FLOPS = 67e12
 # device symbols of the port's kernels, as torch.profiler names them
 KERNEL_SYMBOLS = ("syrk_downdate_kernel", "gate_costs_kernel",
                   "score_lines_kernel", "cov_update_kernel",
-                  "pair_gather_kernel")
+                  "pair_gather_kernel", "syrk_gram_kernel")
 
 
 def log(msg):
@@ -114,6 +143,33 @@ def cuda_ms(torch, fn, iters, warmup=3):
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(stop) / iters
+
+
+def event_ms(torch, fn, iters=3, warmup=1):
+    """Mean time of one call of a long-running ``fn`` (tenths of a second,
+    where launch overhead does not matter): ``warmup`` calls, then
+    ``iters`` calls between two CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def pose_gaps(a, b):
+    """Largest position gap (m), heading gap (rad, wrapped) and the tick
+    of the larger, between two [T, 3] pose tracks (x, y, theta_deg)."""
+    dpos = (a[:, :2].double() - b[:, :2].double()).abs().amax(dim=1)
+    dth = (a[:, 2].double() - b[:, 2].double() + 180.0) % 360.0 - 180.0
+    dhead = dth.abs() * (math.pi / 180.0)
+    worst = int((dpos + dhead).argmax())
+    return dpos.max().item(), dhead.max().item(), worst
 
 
 def bf16_ulp(x):
@@ -166,10 +222,10 @@ def profile_ticks(torch, sess, carry, traj, t0, n):
             f"top: {top_s}")
 
 
-def slice_params(torch, capacity, **ekf_kw):
+def slice_params(torch, capacity, update_mode="batched", **ekf_kw):
     from ekf_slam_tpu_torch.config import EKFParams, RansacParams
     ep = EKFParams(capacity=capacity, max_obs=8, ref_compat=False,
-                   update_mode="batched", dtype=torch.float32, **ekf_kw)
+                   update_mode=update_mode, dtype=torch.float32, **ekf_kw)
     rp = RansacParams(line_consensus=60, bearing_window_deg=15.0,
                       wall_search_timeout=4, table_capacity=64,
                       promote_count=5, ref_compat=False, n_hypotheses=64,
@@ -255,9 +311,13 @@ def main():
         return 2
     check(os.path.dirname(os.path.dirname(os.path.abspath(tp.__file__)))
           == HERE, f"ekf_slam_tpu_torch resolved outside {HERE}")
+    from ekf_slam_tpu_torch import session as session_mod
     from ekf_slam_tpu_torch.checks import (gate_case, pair_starts,
+                                           recompress_qr_case,
                                            score_lines_case,
                                            session_on_devices)
+    from ekf_slam_tpu_torch.ops.blocked_chol import chol_for_state
+    from ekf_slam_tpu_torch.state import FilterState
     from ekf_slam_tpu_torch.ops import gating as G
     from ekf_slam_tpu_torch.ops import kernels as K
     from ekf_slam_tpu_torch.sim import world as W
@@ -318,7 +378,7 @@ def main():
     log(f"phase 3 K3 NH={NH} B={B} ok: counts equal "
         f"(sum {int(c_k.sum().item())})")
 
-    # -- 4. K2, K4 and K5 against their plain versions --------------------------
+    # -- 4. K2, K4, K5 and K6 against their plain versions --------------------
     S_COST = 1e6            # small enough that position costs show
     err_k2 = None
     for M2, K2n in ((8, 10000), (300, 10000)):
@@ -379,43 +439,111 @@ def main():
         del P4, Kg, V, ref, out
     log(f"phase 4 K5 D={D5} ok: f32 and bf16, int64 and int32 starts, "
         "bit-equal to index_select; out-of-range starts clamped")
+    for D6, R6, dt6 in ((20067, 20067, torch.float32),
+                        (1003, 1500, torch.float32),
+                        (517, 517, torch.bfloat16),
+                        (517, 517, torch.float64)):
+        wide = dt6 == torch.float64
+        S6 = torch.randn((D6, R6), generator=g, device=dev,
+                         dtype=torch.float64 if wide else torch.float32
+                         ).to(dt6)
+        ref = K.syrk_gram_ref(S6)
+        got = K.syrk_gram(S6, use_pallas=True)
+        torch.cuda.synchronize()
+        check(got.dtype == ref.dtype == (torch.float64 if wide
+                                         else torch.float32),
+              f"K6 {dt6} gave {got.dtype}, plain {ref.dtype}")
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        tol = 1e-12 if wide else 1e-5
+        check(rel <= tol, f"K6 D={D6} R={R6} {dt6} relative error {rel} "
+              f"> {tol}")
+        check(torch.equal(got, got.T), f"K6 D={D6} {dt6} not bit-symmetric")
+        log(f"phase 4 K6 D={D6} R={R6} {str(dt6)[6:]} ok: relative error "
+            f"{rel:.3e} of |G|max, bit-symmetric, {str(got.dtype)[6:]} out")
+        del S6, ref, got
+    torch.cuda.empty_cache()
 
     # -- 5. the session, card against CPU ---------------------------------------
     counted = {"syrk_downdate": K.syrk_downdate, "gate_costs": G.gate_costs,
                "score_lines": K.score_lines, "cov_update": K.cov_update,
-               "pair_gather": K.pair_gather}
-    T4 = 32
-    for path, kw, ours in (("tuned", dict(correction="syrk"),
-                            ("syrk_downdate",)),
-                           ("kernel", KERNEL_PATH,
-                            ("gate_costs", "cov_update", "pair_gather"))):
-        ep4, rp4 = slice_params(torch, 256, pht_mode="rows", **kw)
+               "pair_gather": K.pair_gather, "syrk_gram": K.syrk_gram}
+    SR_PATH = dict(update_mode="srekf_fast", rows_gather="pallas")
+    for path, kw, ours, T4 in (
+            ("tuned", dict(pht_mode="rows", correction="syrk"),
+             ("syrk_downdate",), 32),
+            ("kernel", dict(pht_mode="rows", **KERNEL_PATH),
+             ("gate_costs", "cov_update", "pair_gather"), 32),
+            ("srekf_fast", dict(SR_PATH, sr_noise_buffer=16),
+             ("pair_gather",), 80)):
+        ep4, rp4 = slice_params(torch, 256, **kw)
         for fn in counted.values():
             fn.launches = 0
         outs4 = session_on_devices(ep4, rp4, T4, 1024, ("cuda", "cpu"))
-        check(all(counted[k].launches == T4 for k in ours),
-              f"{path} path on the card launched "
-              f"{ {k: counted[k].launches for k in ours} }, expected {T4} "
-              "each")
+        got4 = {k: fn.launches for k, fn in counted.items()
+                if k != "score_lines"}
+        want4 = {k: T4 if k in ours else 0 for k in got4}
+        check(got4 == want4, f"{path} path on the card launched {got4}, "
+              f"expected {want4}")
         na_c, na_h = outs4["cuda"].n_active.cpu(), outs4["cpu"].n_active
         check(torch.equal(na_c, na_h),
               f"{path} path n_active differs: card {na_c.tolist()} "
               f"cpu {na_h.tolist()}")
-        dpose = (outs4["cuda"].pose.cpu()
-                 - outs4["cpu"].pose).abs().max().item()
-        check(dpose <= 1e-3, f"{path} path card/CPU pose differ by {dpose}")
-        log(f"phase 5 {path} path card vs CPU ok: {T4} ticks, capacity "
-            f"256, n_active equal (final {int(na_h[-1])}), max pose diff "
-            f"{dpose:.3e}")
+        pose_c = outs4["cuda"].pose.cpu()
+        if path != "srekf_fast":
+            dpose = (pose_c - outs4["cpu"].pose).abs().max().item()
+            check(dpose <= 1e-3,
+                  f"{path} path card/CPU pose differ by {dpose}")
+            log(f"phase 5 {path} path card vs CPU ok: {T4} ticks, capacity "
+                f"256, n_active equal (final {int(na_h[-1])}), max pose "
+                f"diff {dpose:.3e}")
+            continue
+        # 80 f32 ticks: the heading, in degrees, carries the extractor's
+        # f32 rounding of the wall bearings (~1e-3°); it is held to 1e-3
+        # in radians, as the position is in metres, and the CPU's own f32
+        # run against its f64 run shows the size of that rounding
+        ep64, rp64 = (dataclasses.replace(p_, dtype=torch.float64)
+                      for p_ in (ep4, rp4))
+        pose_64 = session_on_devices(ep64, rp64, T4, 1024, ("cpu",))[
+            "cpu"].pose
+        dpos, dhead, worst = pose_gaps(pose_c, outs4["cpu"].pose)
+        fpos, fhead, fworst = pose_gaps(outs4["cpu"].pose, pose_64)
+        check(dpos <= 1e-3 and dhead <= 1e-3,
+              f"{path} path card/CPU pose differ by {dpos} m, {dhead} rad "
+              f"(worst tick {worst}); the CPU's f32 run differs from its "
+              f"f64 run by {fpos} m, {fhead} rad (tick {fworst})")
+        log(f"phase 5 {path} path card vs CPU ok: {T4} ticks, capacity 256, "
+            f"buffer {ep4.sr_noise_buffer}, n_active equal (final "
+            f"{int(na_h[-1])}), max position diff {dpos:.3e} m, heading "
+            f"{dhead:.3e} rad ({math.degrees(dhead):.3e} deg, tick {worst}); "
+            f"the CPU's f32 run against its f64 run: {fpos:.3e} m, "
+            f"{fhead:.3e} rad ({math.degrees(fhead):.3e} deg, tick "
+            f"{fworst})")
+    qr = recompress_qr_case(("cuda", "cpu"))
+    for where, res in qr.items():
+        check(res["chol_failed"], f"recompression on {where}: the Cholesky "
+              "of a singular Gram did not give NaN")
+        check(res["qr_taken"], f"recompression on {where}: the QR "
+              "branch's factor was not taken")
+    Lq = qr["cuda"]["L"]
+    check(bool(torch.isfinite(Lq).all()), "QR branch factor not finite")
+    check(torch.equal(Lq, Lq.tril()), "QR branch factor not triangular")
+    dq = (Lq.cpu() - qr["cpu"]["L"]).abs().max().item()
+    check(dq <= 1e-4, f"QR branch card/CPU factors differ by {dq}")
+    log(f"phase 5 recompression QR branch ok: D={Lq.shape[0]} f32, the "
+        f"Cholesky gave NaN and the QR branch was taken on card and CPU, "
+        f"factor finite and lower triangular, card/CPU max|Δ| {dq:.3e}")
+    del qr, Lq
 
     # -- 6. the tuned path at full width -------------------------------------------
     T = 64
-    T_PROF = 8                          # ticks profiled after the run
+    T_SR = 72                           # the square-root path's run (7b)
+    T_PROF = 8                          # ticks profiled after each run
     cfg = tp.SimConfig(n_beams=1024, max_range=12.0)
     gs = torch.Generator(device=dev)
     gs.manual_seed(0)
     traj = W.simulate(W.rectangle_room(4.0, 3.0, device=dev),
-                      W.circle_controls(T + T_PROF, 0.05, 3.0, device=dev),
+                      W.circle_controls(T_SR + T_PROF, 0.05, 3.0,
+                                        device=dev),
                       cfg, gs)
     ep, rp = slice_params(torch, 10000)
     ep = tuned_params(ep, batch=ep.max_obs)
@@ -429,7 +557,7 @@ def main():
     expect_sl = T * (1 + rp.wall_search_timeout)
     check(launches == dict(syrk_downdate=T, gate_costs=0,
                            score_lines=expect_sl, cov_update=0,
-                           pair_gather=0),
+                           pair_gather=0, syrk_gram=0),
           f"tuned path launches {launches}, expected {T} syrk_downdate, "
           f"{expect_sl} score_lines and no other")
     log(f"phase 6 tuned path full width ok: capacity {ep.capacity}, "
@@ -437,7 +565,9 @@ def main():
     log("phase 6 profile: "
         + profile_ticks(torch, run6["sess"], run6["carry"], traj, T, T_PROF))
     launches6 = launches
-    del run6
+    P6 = filt.P                         # the tuned path's P, for phase 8
+    del run6, filt
+    torch.cuda.empty_cache()
 
     # -- 7. the kernel path at full width ------------------------------------------
     T7 = 32
@@ -451,7 +581,7 @@ def main():
           f"kernel path P is {tuple(filt7.P.shape)} {filt7.P.dtype}")
     expect7 = dict(syrk_downdate=0, gate_costs=T7,
                    score_lines=T7 * (1 + rp7.wall_search_timeout),
-                   cov_update=T7, pair_gather=T7)
+                   cov_update=T7, pair_gather=T7, syrk_gram=0)
     check(launches7 == expect7,
           f"kernel path launches {launches7}, expected {expect7}")
     log(f"phase 7 kernel path full width ok: capacity {ep7.capacity}, "
@@ -462,6 +592,133 @@ def main():
                         T_PROF))
     P7 = filt7.P.clone()
     del run7, filt7
+    torch.cuda.empty_cache()
+
+    # -- 7b. the square-root path at full width ------------------------------
+    ep9, rp9 = slice_params(torch, 10000, **SR_PATH)
+    D9, B9 = ep9.dim + ep9.sr_noise_buffer, ep9.sr_noise_buffer
+    check((ep9.pht_mode, ep9.update_chunks, B9, 2 * ep9.max_obs, D9)
+          == ("dense", 1, 64, 16, 20067),
+          f"square-root path configuration changed: {ep9}")
+    rec = B9 - 1                        # the tick that recompresses
+    handed = {}                 # the factor sr_recompress is given, its result
+    real_recompress = session_mod.sr_recompress
+
+    def grab(filt):
+        # a reference, not a copy: sr_recompress leaves its input alone
+        # and the session drops it, so the timed tick does no extra work
+        handed.update(S=filt.P, n_active=filt.n_active)
+        return real_recompress(filt)
+
+    sess9 = tp.SlamSession(ekf_params=ep9, ransac_params=rp9, seed=1)
+    warm = sess9.init_carry(first_odom=traj.odom[0])
+    for t in range(3):                                  # warm-up ticks
+        warm, _ = sess9.step(warm, traj.odom[t], traj.ranges[t],
+                             traj.beam_angles)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    carry9 = sess9.init_carry(first_odom=traj.odom[0])
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+          for _ in range(T_SR)]         # each tick's start and end
+    outs9, syncs9, after_rec = [], [], None
+    session_mod.sr_recompress = grab
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for t in range(T_SR):
+            # sync census of every tick (PyTorch's own, which may miss
+            # some kinds of synchronisation)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                ev[t][0].record()
+                carry9, o = sess9.step(carry9, traj.odom[t], traj.ranges[t],
+                                       traj.beam_angles)
+                ev[t][1].record()
+            syncs9.append([f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+                           for w in caught if "synchroniz" in str(w.message)])
+            outs9.append(o)
+            if t == rec:    # between two ticks' windows: the new factor
+                S9 = carry9.filt.P          # (later ticks update it in place)
+                handed["L"] = S9.clone()
+                handed["n_active"] = handed["n_active"].clone()
+                after_rec = (torch.count_nonzero(torch.triu(S9, 1)),
+                             torch.count_nonzero(S9[:, ep9.dim:]))
+                del S9
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        session_mod.sr_recompress = real_recompress
+    torch.cuda.synchronize()
+    launches9 = {name: fn.launches for name, fn in counted.items()}
+    tick9 = [a.elapsed_time(b) for a, b in ev]
+    filt9 = carry9.filt
+    n9 = int(filt9.n_active.item())
+    check(filt9.P.shape == (D9, D9) and filt9.P.dtype == torch.float32,
+          f"square-root path S is {tuple(filt9.P.shape)} {filt9.P.dtype}")
+    check(bool(torch.isfinite(filt9.x).all()), "non-finite x")
+    check(bool(torch.isfinite(filt9.P).all()), "non-finite S")
+    check(n9 > 0, "no landmark mapped")
+    check(carry9.sr_tick == T_SR, f"sr_tick {carry9.sr_tick} != {T_SR}")
+    ate9 = W.ate_rmse(torch.stack([o.pose for o in outs9])[:, :2],
+                      traj.truth[:T_SR, :2]).item()
+    check(ate9 < 0.5, f"square-root path ATE {ate9} m")
+    expect9 = dict(syrk_downdate=0, gate_costs=0,
+                   score_lines=T_SR * (1 + rp9.wall_search_timeout),
+                   cov_update=0, pair_gather=T_SR, syrk_gram=0)
+    check(launches9 == expect9,
+          f"square-root path launches {launches9}, expected {expect9}")
+    n_sync = [len(x) for x in syncs9]
+    check(n_sync[rec] == 1 and sum(n_sync) == 1,
+          f"host syncs per tick {n_sync} (expected 1 on tick {rec} only): "
+          f"{[x for x in syncs9 if x]}")
+    check("S" in handed, "the recompression did not run")
+    off, buf = (int(c.item()) for c in after_rec)
+    check(off == 0 and buf == 0, f"after the recompression S has {off} "
+          f"entries above its diagonal and {buf} in its buffer columns")
+    ordinary = [ms for t, ms in enumerate(tick9) if t != rec]
+    log(f"phase 7b square-root path full width ok: capacity "
+        f"{ep9.capacity}, S ({D9}, {D9}) f32 with {B9} buffer columns, "
+        f"{T_SR} ticks, n_active {n9}, ATE {ate9:.4f} m, launches "
+        f"{launches9}, host syncs 0 per ordinary tick and 1 on the "
+        f"recompression tick ({syncs9[rec]}), S lower triangular with its "
+        f"buffer columns 0 after it; ordinary tick median "
+        f"{statistics.median(ordinary):.3f} ms, recompression tick "
+        f"{tick9[rec]:.3f} ms (CUDA events)")
+    log("phase 7b profile: "
+        + profile_ticks(torch, sess9, carry9, traj, T_SR, T_PROF))
+    del carry9, filt9, outs9, sess9
+    torch.cuda.empty_cache()
+
+    # K6 on the factor the recompression was handed: the recompression's
+    # Gram through the kernel, counters set to 0 just before and read
+    # just after, then the Cholesky the recompression runs
+    S_h, na_h, L_sess = handed["S"], handed["n_active"], handed.pop("L")
+    for fn in counted.values():
+        fn.launches = 0
+    G6 = K.syrk_gram(S_h, use_pallas=True)
+    L6 = chol_for_state(G6, na_h)
+    torch.cuda.synchronize()
+    launches_k6 = {name: fn.launches for name, fn in counted.items()}
+    check(launches_k6 == {k: int(k == "syrk_gram") for k in counted},
+          f"the Gram through K6 launched {launches_k6}")
+    G_lib = torch.matmul(S_h, S_h.T)
+    err_k6 = (G6 - G_lib).abs().max().item()
+    rel6 = err_k6 / G_lib.abs().max().item()
+    check(rel6 <= 1e-5, f"K6 on the path: relative error {rel6} > 1e-5")
+    check(torch.equal(G6, G6.T), "K6 on the path: G not bit-symmetric")
+    del G_lib
+    d_act = 3 + 2 * int(na_h.item())
+    Ls, Lk = L_sess[:d_act, :d_act], L6[:d_act, :d_act]
+    rel_l = ((Lk - Ls).abs().max() / Ls.abs().max()).item()
+    check(rel_l <= 1e-3, f"Cholesky of K6's Gram differs from the "
+          f"session's factor by {rel_l} of its largest entry")
+    log(f"phase 7b K6 on the path ok: S ({D9}, {D9}) f32 as handed to the "
+        f"recompression, launches {launches_k6}, relative error "
+        f"{rel6:.3e} of |S·Sᵀ|max, bit-symmetric; the Cholesky of its Gram "
+        f"is within {rel_l:.3e} of the session's factor on the active "
+        f"{d_act}×{d_act} block")
+    del L6, L_sess
 
     # -- 8. kernel timings at the paths' shapes -----------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes,
@@ -474,9 +731,9 @@ def main():
             bound_by="bytes" if bb[0] >= bb[1] else "operations",
             library_ms=library_ms)
 
-    Dm = filt.P.shape[0]
+    Dm = P6.shape[0]
     Rm = 2 * ep.max_obs
-    Pm = filt.P.clone()
+    Pm = P6                             # its carry is gone: update in place
     Wm = (torch.randn((Dm, Rm), generator=g, device=dev) * 1e-3).to(
         torch.bfloat16)
     entry("syrk_downdate", "syrk_downdate.cu",
@@ -488,7 +745,7 @@ def main():
           Dm * Dm * Rm + Dm * Dm,          # half the products, + subtract
           BF16_FLOPS,
           cuda_ms(torch, lambda: torch.addmm(Pm, Wm, Wm.T, alpha=-1), 5))
-    del Pm, filt
+    del Pm, P6
 
     M8, K8 = args8[2].shape[0], args8[4].shape[0]
     strip_ms = cuda_ms(torch, lambda: G._bearing_strip(args8[0], args8[4]),
@@ -538,13 +795,42 @@ def main():
           2 * (2 * n_pairs * D7 * 4) + n_pairs * 8, 0, F32_FLOPS,
           cuda_ms(torch, lambda: P7.index_select(0, rows), 200))
     del P7
+
+    # K6 on the factor the recompression was handed; its lower half is
+    # D(D+1)/2 dot products of length R = D
+    entry("syrk_gram", "syrk_gram.cu",
+          "ekf_slam_tpu/ops/pallas/kernels.py:413",
+          launches9["syrk_gram"], err_k6,
+          event_ms(torch, lambda: K.syrk_gram(S_h, use_pallas=True)),
+          event_ms(torch, lambda: K.syrk_gram_ref(S_h)),
+          D9 * D9 * 4 + D9 * D9 * 4,       # read S, write G
+          D9 * (D9 + 1) * D9,              # 2 flops per multiply-add
+          F32_FLOPS,
+          event_ms(torch, lambda: torch.matmul(S_h, S_h.T)))
+    # no session launches K6 (the recompression takes the plain Gram, as
+    # the JAX default does): its one launch is the call on the factor above
+    kernels["syrk_gram"].update(on_path=False,
+                                side_call_launches=launches_k6["syrk_gram"])
+    chol_ms = event_ms(torch, lambda: chol_for_state(G6, na_h))
+    state_h = FilterState(
+        x=torch.zeros((D9,), device=dev), P=S_h,
+        sig=torch.zeros((ep9.capacity,), device=dev),
+        active=torch.zeros((ep9.capacity,), dtype=torch.bool, device=dev),
+        n_active=na_h)
+    rec_ms = event_ms(torch, lambda: real_recompress(state_h))
+    del G6, S_h, state_h
     for name, k in kernels.items():
         log(f"phase 8 {name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.6f} by "
-            f"{k['bound_by']}, {k['launches']} launches on its path)")
+            f"{k['bound_by']}, {k['launches']} launches on its path, "
+            f"{k.get('side_call_launches', 0)} beside it)")
     log(f"phase 8 gate_costs: of its {kernels['gate_costs']['ms']:.4f} ms, "
         f"the bearing strip computed by torch before the launch takes "
         f"{strip_ms:.4f} ms")
+    log(f"phase 8 square-root recompression at D={D9} f32: the blocked "
+        f"Cholesky (chol_for_state) {chol_ms:.3f} ms, the whole "
+        f"sr_recompress (plain Gram + Cholesky + one host read) "
+        f"{rec_ms:.3f} ms")
 
     print(json.dumps({"kernels": [dict(name=n, **k)
                                   for n, k in kernels.items()]}))

@@ -16,7 +16,10 @@ kernels; P updated in place.  This package imports neither JAX nor
 The session's kernel path runs the fused gate, row-pair gather and
 in-place covariance correction kernels instead: ``EKFParams(...,
 pht_mode="rows", rows_gather="pallas", correction="gemm",
-use_pallas=True)`` with f32 P.
+use_pallas=True)`` with f32 P.  The general-factor square-root session,
+``EKFParams(..., update_mode="srekf_fast", rows_gather="pallas")``,
+carries a square root S of P (P = S·Sᵀ) and recompresses it with a
+blocked Cholesky every ``sr_noise_buffer`` ticks.
 """
 
 from .config import EKFParams, RansacParams, SimConfig

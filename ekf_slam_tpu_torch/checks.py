@@ -1,7 +1,8 @@
 """Inputs and runs shared by the port's on-card checks (``chip_smoke.py``
 and ``tests/test_torch_cuda.py``): the K3 scoring case, the K2 gating
-case, the K5 pair starts, and one session run on several devices with the
-same inputs.  Each caller keeps its own shapes and tolerances."""
+case, the K5 pair starts, the square-root recompression's QR branch, and
+one session run on several devices with the same inputs.  Each caller
+keeps its own shapes and tolerances."""
 from __future__ import annotations
 
 from typing import Dict, Iterable, Tuple
@@ -9,9 +10,14 @@ from typing import Dict, Iterable, Tuple
 import torch
 
 from .config import EKFParams, RansacParams, SimConfig
+from .models.srekf import _retriangularize
+from .models.srekf_fast import sr_recompress
 from .ops.angles import atan2d, wrap_to_360
+from .ops.blocked_chol import chol_for_state
+from .ops.kernels import syrk_gram
 from .session import SlamSession
 from .sim import world as W
+from .state import FilterState
 
 
 def score_lines_case(g: torch.Generator, NH: int, B: int, thresh: float
@@ -92,6 +98,50 @@ def pair_starts(rows: int, device, dtype=torch.int64) -> torch.Tensor:
     unordered, and the last row pair (rows − 2)."""
     s = [3, rows - 2, 3, rows // 2 + 1, 5, rows - 2, 0, rows // 3]
     return torch.tensor(s, dtype=dtype, device=device)
+
+
+def recompress_qr_case(devices: Iterable[str], capacity: int = 32,
+                       n_active: int = 20, buffer: int = 8, seed: int = 0
+                       ) -> Dict[str, Dict[str, object]]:
+    """``sr_recompress`` of one f32 general factor whose last active row is
+    zeroed, on each device.  The factor is made on the CPU from ``seed``:
+    a random lower-triangular block over the 3 + 2·n_active active dims,
+    mixed by a random orthogonal matrix (so it is not triangular), with
+    noise deposits in the pose rows of the buffer columns.  Its Gram is
+    singular, so the blocked Cholesky gives NaN and the recompression must
+    take its QR branch.  The zeroed row is the last active one, so the QR's
+    R is unique up to the signs the branch fixes, whichever QR routine the
+    device runs.  Returns {device: {"chol_failed": the Cholesky's diagonal
+    is not finite, "qr_taken": the result equals the QR branch's, "L":
+    the recompressed factor}}."""
+    g = torch.Generator().manual_seed(seed)
+    D = 3 + 2 * capacity + buffer
+    d = 3 + 2 * n_active
+    A = torch.randn((d, d), generator=g, dtype=torch.float64)
+    Q, _ = torch.linalg.qr(torch.randn((d, d), generator=g,
+                                       dtype=torch.float64))
+    S = torch.zeros((D, D), dtype=torch.float64)
+    S[:d, :d] = (torch.tril(A) * 0.1 + torch.eye(d, dtype=torch.float64)
+                 * 0.3) @ Q
+    S[:3, D - buffer:D - buffer // 2] = torch.randn(
+        (3, buffer - buffer // 2), generator=g, dtype=torch.float64) * 0.01
+    S[d - 1] = 0.0
+    S = S.float()
+    out = {}
+    for where in devices:
+        na = torch.tensor(n_active, dtype=torch.int32, device=where)
+        state = FilterState(
+            x=torch.zeros((D,), device=where), P=S.to(where),
+            sig=torch.zeros((capacity,), device=where),
+            active=torch.arange(capacity, device=where) < n_active,
+            n_active=na)
+        diag = torch.diagonal(chol_for_state(syrk_gram(state.P), na))
+        L = sr_recompress(state).P
+        act = (torch.arange(D, device=where) < d).float()
+        qr = _retriangularize(state.P.T, D) * act[:, None]
+        out[where] = dict(chol_failed=not bool(torch.isfinite(diag).all()),
+                          qr_taken=bool(torch.equal(L, qr)), L=L)
+    return out
 
 
 def session_on_devices(ep: EKFParams, rp: RansacParams, T: int,

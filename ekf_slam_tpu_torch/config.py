@@ -58,8 +58,8 @@ class EKFParams:
     p0_diag: float = 0.1
     association: str = ASSOC_SIGNATURE
     ml_losers: str = "append"
-    #: only 'batched' runs in this package so far; the session raises
-    #: NotImplementedError for the others.
+    #: 'batched' and 'srekf_fast' run in this package so far; the session
+    #: raises NotImplementedError for the others.
     update_mode: str = "sequential"
     sr_noise_buffer: int = 64
     update_chunks: int = 1

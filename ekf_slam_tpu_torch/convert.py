@@ -65,10 +65,13 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
 def carry_from_numpy(carry, device=None) -> SessionCarry:
     """The port's SessionCarry from the JAX SessionCarry's leaves as numpy
     arrays (any object with ``filt`` (x, P, sig, active, n_active),
-    ``table`` (loc, observe, index, fresh, used) and ``old_odom``)."""
+    ``table`` (loc, observe, index, fresh, used), ``old_odom`` and, for an
+    'srekf_fast' carry, ``sr_tick``, which becomes a host int)."""
     def conv(obj, cls):
         return cls(*(tensor_from_numpy(getattr(obj, f), device)
                      for f in cls._fields))
+    sr_tick = getattr(carry, "sr_tick", None)
     return SessionCarry(filt=conv(carry.filt, FilterState),
                         table=conv(carry.table, LandmarkTable),
-                        old_odom=tensor_from_numpy(carry.old_odom, device))
+                        old_odom=tensor_from_numpy(carry.old_odom, device),
+                        sr_tick=None if sr_tick is None else int(sr_tick))

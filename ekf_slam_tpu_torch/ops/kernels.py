@@ -10,6 +10,8 @@ launch counters and the nvcc + ctypes loader.
   (csrc/cov_update.cu; replaces ``cov_update_pallas``).
 * ``pair_gather`` — out[2i:2i+2] = P[starts[i]:starts[i]+2], starts read
   on the device (csrc/pair_gather.cu; replaces ``pair_gather_pallas``).
+* ``syrk_gram`` — G = S·Sᵀ from the lower tile pairs, each mirrored from
+  the same registers (csrc/syrk_gram.cu; replaces ``syrk_gram_pallas``).
 
 The fused gate kernel (csrc/gate_costs.cu, ``gating.gate_costs_pallas``
 in the JAX package) has its wrapper in ``ops/gating.py`` and is built and
@@ -46,7 +48,8 @@ _SOURCES = {"syrk_downdate": "syrk_downdate.cu",
             "score_lines": "score_lines.cu",
             "gate_costs": "gate_costs.cu",
             "cov_update": "cov_update.cu",
-            "pair_gather": "pair_gather.cu"}
+            "pair_gather": "pair_gather.cu",
+            "syrk_gram": "syrk_gram.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # gate_costs rounds every product and sum on its own, as the plain
@@ -80,6 +83,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         # (P, starts, starts are int64, pairs, rows, D, element bytes,
         #  out, stream)
         "pair_gather": [vp, vp, ci, ci, ci, ci, ci, vp, vp],
+        # (S, G, D, R, dtype code, stream)
+        "syrk_gram": [vp, vp, ci, ci, ci, vp],
     }[name]
 
 
@@ -359,3 +364,60 @@ def gather_pairs(P: torch.Tensor, starts: torch.Tensor, mode: str
     rp = (starts.to(torch.int64)[:, None]
           + torch.arange(2, device=P.device)).reshape(-1)
     return P.index_select(0, rp)
+
+
+# ---------------------------------------------------------------------------
+# K6 · symmetric Gram G = S·Sᵀ
+# ---------------------------------------------------------------------------
+
+def _gram_acc(dtype: torch.dtype) -> torch.dtype:
+    """The Gram's accumulation and output dtype: f32 for narrow storage."""
+    return (torch.float32 if dtype in (torch.bfloat16, torch.float16)
+            else dtype)
+
+
+def syrk_gram_ref(S: torch.Tensor) -> torch.Tensor:
+    """Plain version: S·Sᵀ in the accumulation dtype (kernels.py:364-368)."""
+    A = S.to(_gram_acc(S.dtype))
+    return A @ A.T
+
+
+_GRAM_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+
+
+def syrk_gram(S: torch.Tensor, use_pallas: Optional[bool] = None
+              ) -> torch.Tensor:
+    """G = S·Sᵀ [D,D] for S [D,R], in the accumulation dtype (f32 for
+    f32/bf16/f16 S, f64 for f64), with the JAX dispatch (kernels.py:483):
+
+    * ``use_pallas`` falsy: the plain product, ``torch.matmul``, which the
+      JAX default leaves to XLA — what the recompression runs;
+    * truthy, CUDA tensor: the Gram kernel (float32, bfloat16 or float64
+      S), at any D and R: nothing is padded and nothing falls back;
+    * truthy, CPU tensor: the plain version ``syrk_gram_ref``."""
+    _require(S.dim() == 2, f"S must be a matrix, got {tuple(S.shape)}")
+    if not use_pallas:
+        A = S.to(_gram_acc(S.dtype))
+        return torch.matmul(A, A.T)
+    if S.device.type == "cpu":
+        return syrk_gram_ref(S)
+    _require(S.device.type == "cuda",
+             f"syrk_gram runs on CUDA or CPU tensors, not {S.device}")
+    _require(S.dtype in _GRAM_DTYPES,
+             f"the syrk_gram kernel takes float32, bfloat16 or float64, "
+             f"not {S.dtype}")
+    _require(S.is_contiguous(), "syrk_gram needs a contiguous S")
+    D, R = S.shape
+    G = torch.empty((D, D), dtype=_gram_acc(S.dtype), device=S.device)
+    if D == 0:
+        return G
+    lib = _lib("syrk_gram")
+    with torch.cuda.device(S.device):
+        err = lib.syrk_gram(S.data_ptr(), G.data_ptr(), D, R,
+                            _GRAM_DTYPES[S.dtype], _stream(S.device))
+    _launch_check("syrk_gram", err)
+    syrk_gram.launches += 1
+    return G
+
+
+syrk_gram.launches = 0

@@ -10,8 +10,8 @@ The JAX session compiles the tick once and scans it over a sequence; here
 ``run`` is a Python loop over ticks and each tick issues the same ops on
 the same shapes, with no host read of a device value (the data-dependent
 branches are masked selects), so the host only enqueues work.  No host
-sync remains in a tick: chip_smoke.py counts them with PyTorch's
-sync-debug mode and fails on any.
+sync remains in a tick but the square-root recompression's one (below):
+chip_smoke.py counts them with PyTorch's sync-debug mode.
 
 The covariance is updated in place, as the JAX session's donated carry
 is (session.py:134-143): ``step`` consumes the carry it is given; keep
@@ -21,12 +21,19 @@ given explicit draws ``(u, s)`` — the JAX package draws them from
 threefry, which torch cannot reproduce, so parity runs hand the JAX
 draws in.
 
-Only the batched odometry-driven session is ported so far, on two paths:
-the tuned schedule (utils/schedule.tuned_params: rows, bf16 P, the SYRK
+Ported so far, with odometry control: the batched session on two paths
+— the tuned schedule (utils/schedule.tuned_params: rows, bf16 P, the SYRK
 kernel) and the kernel path (``use_pallas=True, rows_gather='pallas',
 correction='gemm'``: the fused gate, row-pair gather and in-place
-correction kernels).  The other update modes, ICP/fused control, the
-fault guard and map maintenance raise NotImplementedError.
+correction kernels) — and the general-factor square-root session
+(``update_mode='srekf_fast'``, models/srekf_fast.py), whose factor S is
+carried in the P field.  Its recompression schedule is kept on the host:
+the carry's ``sr_tick`` is a Python int, so the tick that recompresses
+and the noise column of each predict are known without a read from the
+device; the recompression itself reads one flag back (its QR branch,
+srekf_fast.sr_recompress), so that tick syncs once.  The QR square-root
+mode ('srekf'), the sequential mode, ICP/fused control, the fault guard
+and map maintenance raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ from .config import (EKFParams, RansacParams, ref_compat_known,
                      ref_compat_uc, resolve_device)
 from .models import ekf
 from .models.batched import measure_batched
+from .models.srekf import factor_from_state, sr_strips
+from .models.srekf_fast import sr_measure_fast, sr_predict_fast, sr_recompress
 from .ops.angles import angdiff_deg
 from .ops.association import batch_costs, gate_batch
 from .ops.observations import ObsBatch
@@ -60,6 +69,9 @@ class SessionCarry(NamedTuple):
     filt: FilterState
     table: LandmarkTable
     old_odom: torch.Tensor   # f[3] previous odometry pose (SLAM.m:100-113)
+    #: ticks run so far under update_mode='srekf_fast' (None otherwise): a
+    #: host int, where the JAX carry holds a device i32
+    sr_tick: Optional[int] = None
 
 
 class StepOutput(NamedTuple):
@@ -76,7 +88,8 @@ class StepOutput(NamedTuple):
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to ekf_slam_tpu_torch yet (a later slice); "
-        "this slice runs update_mode='batched' with odometry control")
+        "the port runs update_mode='batched' or 'srekf_fast' with odometry "
+        "control")
 
 
 @dataclasses.dataclass
@@ -117,7 +130,7 @@ class SlamSession:
         ep = self.ekf_params
         if self.control_source != "odometry":
             raise _not_ported(f"control_source={self.control_source!r}")
-        if ep.update_mode != "batched":
+        if ep.update_mode not in ("batched", "srekf_fast"):
             raise _not_ported(f"update_mode={ep.update_mode!r}")
         if ep.guard_max_jump is not None:
             raise _not_ported("the fault guard (guard_max_jump)")
@@ -131,11 +144,19 @@ class SlamSession:
     def init_carry(self, first_odom=None, init_pose=None) -> SessionCarry:
         """Initial carry.  Under correction='syrk' the state is padded to a
         multiple of 512, as the JAX session pads it for its kernel
-        (session.py:204-214), so both packages run the same D.
-        ``init_pose`` anchors the filter at [x, y, theta_deg]."""
+        (session.py:204-214), so both packages run the same D; under
+        'srekf_fast' it gains ``sr_noise_buffer`` spare dims and carries
+        its Cholesky factor (session.py:195-202).  ``init_pose`` anchors
+        the filter at [x, y, theta_deg]."""
         ep = self.ekf_params
-        pad = 512 if ep.correction == "syrk" else 1
-        filt = init_state(ep, pad_to_multiple_of=pad, device=self.device)
+        sr_tick = None
+        if ep.update_mode == "srekf_fast":
+            filt = factor_from_state(init_state(
+                ep, extra_dims=ep.sr_noise_buffer, device=self.device))
+            sr_tick = 0
+        else:
+            pad = 512 if ep.correction == "syrk" else 1
+            filt = init_state(ep, pad_to_multiple_of=pad, device=self.device)
         if init_pose is not None:
             x = filt.x.clone()
             x[:3] = torch.as_tensor(init_pose, dtype=x.dtype)
@@ -147,7 +168,7 @@ class SlamSession:
         return SessionCarry(filt=filt,
                             table=self._init_table(self.ransac_params,
                                                    device=self.device),
-                            old_odom=old)
+                            old_odom=old, sr_tick=sr_tick)
 
     def _nis(self, filt: FilterState, obs: ObsBatch) -> torch.Tensor:
         """Per-observation NIS against the pre-measure state the
@@ -156,12 +177,14 @@ class SlamSession:
         zs = torch.stack([obs.rng, obs.bearing, obs.index.to(ep.dtype)],
                          dim=-1)
         Rs = ekf.obs_noise_batch(obs, zs, ep)
+        strips = (sr_strips(filt.P, ep.capacity, triangular=False)
+                  if ep.update_mode == "srekf_fast" else None)
         if ep.association == "known":
             is_new = zs[:, 2] > filt.n_active.to(ep.dtype)
             slots = torch.clamp(obs.index - 1, 0, ep.capacity - 1)
         else:
-            is_new, slots = gate_batch(filt, zs, Rs, ep)[:2]
-        pos_cost, _ = batch_costs(filt, zs, Rs, ep)
+            is_new, slots = gate_batch(filt, zs, Rs, ep, strips=strips)[:2]
+        pos_cost, _ = batch_costs(filt, zs, Rs, ep, strips=strips)
         got = obs.valid & ~is_new & (filt.n_active > 0)
         at = pos_cost.gather(1, slots[:, None].to(torch.int64))[:, 0]
         return torch.where(got, at, float("nan")).to(ep.dtype)
@@ -183,17 +206,36 @@ class SlamSession:
         dTh = angdiff_deg(old[2], odom_pose[2])
         u = torch.stack([dD, dTh]).to(ep.dtype)
 
-        filt = ekf.predict(carry.filt, u, ep)                  # SLAM.m:110
+        sr = ep.update_mode == "srekf_fast"
+        if sr:
+            # this tick's fresh zero column of the factor: the buffer
+            # starts right past the last slot dim (3+2K)
+            col = ep.dim + carry.sr_tick % ep.sr_noise_buffer
+            filt = sr_predict_fast(carry.filt, u, ep, col)
+        else:
+            filt = ekf.predict(carry.filt, u, ep)              # SLAM.m:110
         obs, table = self._extract(carry.table, scan, filt.x, filt.n_active,
                                    rp, ep.max_obs, sig=filt.sig,
                                    draws=draws, generator=self.generator)
         nis = self._nis(filt, obs) if self.collect_nis else None
-        filt = measure_batched(filt, obs, u, ep)               # SLAM.m:116
+        if sr:
+            filt = sr_measure_fast(filt, obs, u, ep)
+        else:
+            filt = measure_batched(filt, obs, u, ep)           # SLAM.m:116
+        sr_tick = carry.sr_tick
+        if sr:
+            # every sr_noise_buffer ticks the spare columns run out:
+            # recompress the general factor back to triangular
+            # (session.py:383-392), decided on the host
+            if (sr_tick + 1) % ep.sr_noise_buffer == 0:
+                filt = sr_recompress(filt)
+            sr_tick += 1
         out = StepOutput(pose=filt.x[:3].clone(), n_active=filt.n_active,
                          n_obs=obs.valid.sum().to(torch.int32), u=u,
                          obs=obs, nis=nis)
         return SessionCarry(filt=filt, table=table,
-                            old_odom=odom_pose.to(ep.dtype)), out
+                            old_odom=odom_pose.to(ep.dtype),
+                            sr_tick=sr_tick), out
 
     def run(self, odom_poses, ranges, beam_angles,
             carry: Optional[SessionCarry] = None,

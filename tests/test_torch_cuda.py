@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card (K1 syrk_downdate, K2 gate_costs,
-K3 score_lines, K4 cov_update, K5 pair_gather), held against their plain
-versions, and the tuned and kernel-path sessions on the card against the
+K3 score_lines, K4 cov_update, K5 pair_gather, K6 syrk_gram), held
+against their plain versions; the blocked Cholesky's NaN on failure
+without a host sync; the square-root recompression's QR branch; and the
+tuned, kernel-path and square-root sessions on the card against the
 CPU.
 
 Marked ``cuda``: each test skips, with its reason, where torch sees no
@@ -14,7 +16,8 @@ import pytest
 import torch
 
 from ekf_slam_tpu_torch.checks import (gate_case, pair_starts,
-                                       score_lines_case, session_on_devices)
+                                       recompress_qr_case, score_lines_case,
+                                       session_on_devices)
 from ekf_slam_tpu_torch.ops import gating as G
 from ekf_slam_tpu_torch.ops import kernels as K
 
@@ -203,6 +206,103 @@ def test_session_on_card_matches_cpu(dev):
                       wall_search_timeout=4, table_capacity=64,
                       promote_count=5, ref_compat=False, n_hypotheses=32)
     outs = session_on_devices(ep, rp, 16, 512, ("cuda", "cpu"))
+    assert torch.equal(outs["cuda"].n_active.cpu(), outs["cpu"].n_active)
+    assert int(outs["cpu"].n_active[-1]) > 0
+    assert (outs["cuda"].pose.cpu() - outs["cpu"].pose).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize("D,R,dtype", [(1003, 1500, torch.float32),
+                                       (517, 517, torch.float32),
+                                       (130, 7, torch.float32),
+                                       (517, 300, torch.bfloat16),
+                                       (517, 517, torch.float64)])
+def test_syrk_gram_kernel_matches_plain(dev, D, R, dtype):
+    """K6 at ragged D and R (no tile divides them; the contraction runs
+    over several slabs): within 1e-5 of max|G| in f32 (sums of R products
+    in another order), 1e-12 in f64; G bit-symmetric, in the accumulation
+    dtype; one launch per call."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    S = torch.randn((D, R), generator=g, device=dev,
+                    dtype=torch.float64).to(dtype)
+    before = K.syrk_gram.launches
+    G_k = K.syrk_gram(S, use_pallas=True)
+    torch.cuda.synchronize()
+    assert K.syrk_gram.launches == before + 1
+    G_r = K.syrk_gram_ref(S)
+    assert G_k.dtype == G_r.dtype == (torch.float64 if dtype == torch.float64
+                                      else torch.float32)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert ((G_k - G_r).abs().max() / G_r.abs().max()).item() <= tol
+    assert torch.equal(G_k, G_k.T)
+
+
+def test_syrk_gram_plain_dispatch_launches_nothing(dev):
+    """Without the flag the Gram is the plain product, as the JAX default
+    (and the recompression) runs it: no kernel launch."""
+    S = torch.randn((300, 40), device=dev)
+    before = K.syrk_gram.launches
+    G = K.syrk_gram(S)
+    assert K.syrk_gram.launches == before
+    assert torch.allclose(G, S @ S.T)
+
+
+@pytest.mark.parametrize("which", ["float16", "strided"])
+def test_syrk_gram_kernel_rejects_what_it_does_not_take(dev, which):
+    S = torch.zeros((64, 32), device=dev)
+    S = S.half() if which == "float16" else S[:, ::2]
+    with pytest.raises(ValueError):
+        K.syrk_gram(S, use_pallas=True)
+
+
+def test_failed_cholesky_gives_nan_without_a_sync(dev):
+    """The blocked Cholesky of a matrix that is not positive definite:
+    NaN on the diagonal from the failing panel on, and no host sync (the
+    error check of cholesky_ex stays off)."""
+    from ekf_slam_tpu_torch.ops.blocked_chol import chol_for_state
+    D = 1500
+    g = torch.Generator(device=dev).manual_seed(1)
+    A = torch.randn((D, D // 2), generator=g, device=dev) / D ** 0.5
+    P = A @ A.T + 0.05 * torch.eye(D, device=dev)
+    P[700, 700] = -1.0
+    n_active = torch.tensor(748, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        L = chol_for_state(P, n_active, block=512)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    d = torch.diagonal(L).cpu()
+    assert torch.isfinite(d[:512]).all() and not torch.isfinite(d).all()
+
+
+def test_recompress_qr_branch_on_card_matches_cpu(dev):
+    """A factor with one active row zeroed: the Cholesky of its Gram
+    fails, the recompression takes its QR branch on both devices, and the
+    card's factor is finite, lower triangular and within 1e-4 of the
+    CPU's."""
+    out = recompress_qr_case(("cuda", "cpu"))
+    for where in ("cuda", "cpu"):
+        assert out[where]["chol_failed"] and out[where]["qr_taken"]
+    L = out["cuda"]["L"].cpu()
+    assert torch.isfinite(L).all() and torch.equal(L, L.tril())
+    assert (L - out["cpu"]["L"]).abs().max().item() <= 1e-4
+
+
+def test_srekf_fast_session_on_card_matches_cpu(dev):
+    """A small square-root session (pair gather on the card), f32, an
+    8-column noise buffer so two recompressions run, the same draws on both
+    devices: the same landmark count every tick, poses within 1e-3; one
+    K5 launch per tick and no K6 launch."""
+    from ekf_slam_tpu_torch import EKFParams, RansacParams
+    ep = EKFParams(capacity=64, max_obs=8, ref_compat=False,
+                   update_mode="srekf_fast", sr_noise_buffer=8,
+                   rows_gather="pallas")
+    rp = RansacParams(line_consensus=30, bearing_window_deg=15.0,
+                      wall_search_timeout=4, table_capacity=64,
+                      promote_count=5, ref_compat=False, n_hypotheses=32)
+    K.pair_gather.launches = K.syrk_gram.launches = 0
+    outs = session_on_devices(ep, rp, 20, 512, ("cuda", "cpu"))
+    assert (K.pair_gather.launches, K.syrk_gram.launches) == (20, 0)
     assert torch.equal(outs["cuda"].n_active.cpu(), outs["cpu"].n_active)
     assert int(outs["cpu"].n_active[-1]) > 0
     assert (outs["cuda"].pose.cpu() - outs["cpu"].pose).abs().max() <= 1e-3

@@ -1,5 +1,6 @@
 """The plain versions of the port's CUDA kernels in ops/kernels.py (K1
-syrk_downdate, K3 score_lines, K4 cov_update, K5 pair_gather) against
+syrk_downdate, K3 score_lines, K4 cov_update, K5 pair_gather, K6
+syrk_gram) against
 the JAX package's Pallas kernels run in interpret mode, and the wrappers'
 CPU behaviour and input checks.  The CUDA kernels themselves have no
 interpret mode: chip_smoke.py builds them on the GPU and holds each one
@@ -251,10 +252,55 @@ def test_pair_gather_wrapper_rejects_bad_inputs(bad):
 
 def test_kernel_sources_export_the_bound_symbols():
     """The ctypes binding names one extern "C" entry point per source."""
-    assert len(tk._SOURCES) == 5
+    assert len(tk._SOURCES) == 6
     for name, src in tk._SOURCES.items():
         text = (ROOT / "ekf_slam_tpu_torch" / "csrc" / src).read_text()
         assert f'extern "C" int {name}(' in text
         assert "cudaGetLastError()" in text
         assert "ekf_slam_tpu/ops/pallas/" in text     # names what it replaces
     assert tk.BUILD_DIR == ROOT / "build" / "torch_kernels"
+
+
+@pytest.mark.parametrize("D,R,dtype,tile,ktile,tol", [
+    (384, 200, jnp.float64, 128, 1024, 1e-12),   # R padded to the k-tile
+    (256, 700, jnp.float64, 128, 256, 1e-12),    # k-tiled accumulation
+    (256, 300, jnp.float32, 128, 128, 1e-5),
+    (256, 96, jnp.bfloat16, 128, 1024, 1e-5)])
+def test_syrk_gram_ref_matches_pallas(rng, D, R, dtype, tile, ktile, tol):
+    """G = S·Sᵀ in the accumulation dtype (f64 for f64, f32 for f32 and
+    bf16 S) against the Pallas Gram in interpret mode, relative to max|G|
+    (f32 sums of R products in other orders)."""
+    S = jnp.asarray(rng.normal(0, 1, (D, R)), jnp.float32).astype(dtype)
+    want = jk.syrk_gram_pallas(S, tile=tile, ktile=ktile, interpret=True)
+    got = tk.syrk_gram_ref(t(S))
+    wide = dtype == jnp.float64
+    assert got.dtype == (torch.float64 if wide else torch.float32)
+    assert np.asarray(want).dtype == (np.float64 if wide else np.float32)
+    err = np.abs(n(got) - n(want)).max() / np.abs(n(want)).max()
+    assert err <= tol
+
+
+@pytest.mark.parametrize("use_pallas", [None, False, True])
+def test_syrk_gram_dispatch_on_cpu(rng, use_pallas):
+    """Every branch of the dispatch gives S·Sᵀ on a CPU tensor (the plain
+    product, or the plain version standing in for the kernel), at a D no
+    tile divides, and launches nothing; bf16 S gives an f32 Gram."""
+    S = torch.from_numpy(rng.normal(0, 1, (131, 17)))
+    before = tk.syrk_gram.launches
+    G = tk.syrk_gram(S, use_pallas=use_pallas)
+    np.testing.assert_allclose(G.numpy(), S.numpy() @ S.numpy().T,
+                               rtol=1e-12, atol=1e-12)
+    Gb = tk.syrk_gram(S.to(torch.bfloat16), use_pallas=use_pallas)
+    assert Gb.dtype == torch.float32
+    assert tk.syrk_gram.launches == before
+
+
+@pytest.mark.parametrize("bad", ["vector", "devices"])
+def test_syrk_gram_wrapper_rejects_bad_inputs(bad):
+    S = torch.zeros((8, 4))
+    if bad == "vector":
+        S = S[0]
+    else:
+        S = S.to("meta")
+    with pytest.raises(ValueError):
+        tk.syrk_gram(S, use_pallas=True)

@@ -1,10 +1,11 @@
-"""The slice as a whole: ekf_slam_tpu_torch's SlamSession against
+"""The slices as a whole: ekf_slam_tpu_torch's SlamSession against
 ekf_slam_tpu's on the CPU.
 
 Both sessions run the batched odometry-driven tick (rows P·Hᵀ + SYRK
 correction, batched-hypothesis extractor; and the kernel path: fused
-gate, pair gather, gemm correction through cov_update) over the same
-simulated sequence.  The JAX session draws its extractor randomness from
+gate, pair gather, gemm correction through cov_update), and the
+general-factor square-root tick (update_mode='srekf_fast', with its
+periodic recompression), over the same simulated sequence.  The JAX session draws its extractor randomness from
 threefry; the port is handed exactly those draws (session.py:320 then
 ransac.py:314-325), so the two runs take the same decisions tick by
 tick.  Also: the simulator's noise-free ray cast, the padded initial
@@ -221,6 +222,7 @@ def test_init_carry_matches(syrk):
     (dict(control_source="icp"), "control_source"),
     (dict(maintain_max_trace=1.0), "maintenance"),
     (dict(ekf=dict(update_mode="sequential")), "update_mode"),
+    (dict(ekf=dict(update_mode="srekf")), "update_mode"),
     (dict(ekf=dict(guard_max_jump=1.0)), "guard"),
 ])
 def test_modes_of_later_slices_raise(kw, match):
@@ -229,3 +231,107 @@ def test_modes_of_later_slices_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         TSession(ekf_params=ep, ransac_params=tc.RansacParams(n_hypotheses=8),
                  device="cpu", **kw)
+
+
+T_SR = 60
+
+
+@pytest.fixture(scope="module")
+def traj_sr():
+    """A 60-tick loop in the same room (the square-root session's run)."""
+    cfg = jc.SimConfig(n_beams=B, max_range=12.0, range_noise_std=0.01,
+                       odom_xy_noise_std=0.0005, odom_theta_noise_std=0.02)
+    return jw.simulate(jw.rectangle_room(4.0, 3.0),
+                       jw.circle_controls(T_SR, 0.05, 3.0), cfg,
+                       jax.random.PRNGKey(0))
+
+
+def _sr_params(rows_gather="take", buffer=8):
+    ep = jc.EKFParams(capacity=16, max_obs=8, ref_compat=False,
+                      update_mode="srekf_fast", sr_noise_buffer=buffer,
+                      rows_gather=rows_gather, dtype=jnp.float64)
+    return ep, _params(jnp.float64)[1]
+
+
+@pytest.mark.parametrize("rows_gather", ["take", "pallas"])
+def test_session_parity_srekf_fast_f64(traj_sr, rows_gather):
+    """update_mode='srekf_fast' at f64 for 60 ticks with an 8-column noise
+    buffer, so 7 recompressions run: per-tick pose ≤ 1e-9, every decision
+    equal, final x and factor S ≤ 1e-9 relative, NIS ≤ 1e-9 relative, and
+    the same tick count, carried as a host int.  With 'pallas' the port
+    gathers S's row pairs through the pair-gather kernel's plain version;
+    the JAX package gathers them with take at this unpadded D (it warns),
+    so the values are the same."""
+    ep, rp = _sr_params(rows_gather)
+    js = JSession(ekf_params=ep, ransac_params=rp, seed=SEED,
+                  collect_nis=True)
+    c0 = js.init_carry(first_odom=traj_sr.odom[0])
+    jcarry, jo = js.run(traj_sr.odom, traj_sr.ranges, traj_sr.beam_angles,
+                        carry=c0)
+    ts = TSession(ekf_params=port(ep), ransac_params=port(rp), seed=SEED,
+                  collect_nis=True, device="cpu")
+    tcarry, to = ts.run(np.array(traj_sr.odom), np.array(traj_sr.ranges),
+                        t(traj_sr.beam_angles),
+                        carry=convert.carry_from_numpy(
+                            jax.tree.map(np.asarray, c0), device="cpu"),
+                        draws=jax_draws(SEED, T_SR))
+    _same_decisions(jo, to)
+    assert np.abs(n(to.pose) - n(jo.pose)).max() <= 1e-9
+    assert max_rel(tcarry.filt.x, jcarry.filt.x) <= 1e-9
+    assert max_rel(tcarry.filt.P, jcarry.filt.P) <= 1e-9
+    assert tcarry.sr_tick == int(jcarry.sr_tick) == T_SR
+    assert isinstance(tcarry.sr_tick, int)
+    assert tcarry.filt.P.shape == (3 + 2 * 16 + 8,) * 2     # not padded
+    nis_t, nis_j = n(to.nis), n(jo.nis)
+    np.testing.assert_array_equal(np.isnan(nis_t), np.isnan(nis_j))
+    ok = np.isfinite(nis_j)
+    assert ok.any() and max_rel(nis_t[ok], nis_j[ok]) <= 1e-9
+
+
+def test_session_srekf_fast_recompresses_on_schedule(traj_sr, monkeypatch):
+    """The recompression runs on ticks 8, 16, ... (the host counter's
+    (sr_tick + 1) % sr_noise_buffer == 0) and leaves the factor lower
+    triangular with the buffer columns exactly 0; the noise column of
+    each predict walks through the buffer."""
+    from ekf_slam_tpu_torch import session as tsess
+    ep, rp = (port(p) for p in _sr_params(buffer=4))
+    seen, cols = [], []
+    real_rc, real_pf = tsess.sr_recompress, tsess.sr_predict_fast
+
+    def rc(filt):
+        seen.append(len(cols))
+        return real_rc(filt)
+
+    def pf(filt, u, params, col):
+        cols.append(col)
+        return real_pf(filt, u, params, col)
+    monkeypatch.setattr(tsess, "sr_recompress", rc)
+    monkeypatch.setattr(tsess, "sr_predict_fast", pf)
+    ts = TSession(ekf_params=ep, ransac_params=rp, seed=SEED, device="cpu")
+    carry = ts.init_carry(first_odom=np.array(traj_sr.odom[0]))
+    draws = jax_draws(SEED, 12)
+    for k in range(12):
+        carry, _ = ts.step(carry, np.array(traj_sr.odom[k]),
+                           np.array(traj_sr.ranges[k]),
+                           t(traj_sr.beam_angles), draws=draws[k])
+    assert seen == [4, 8, 12]
+    assert cols == [ep.dim + k % 4 for k in range(12)]
+    S = n(carry.filt.P)
+    assert np.array_equal(S, np.tril(S)) and np.all(S[:, ep.dim:] == 0)
+
+
+def test_init_carry_srekf_fast_matches():
+    """The square-root initial carry: the factor of the padded initial P
+    (D = 3 + 2K + sr_noise_buffer), sr_tick 0, the same as JAX's."""
+    ep, rp = _sr_params()
+    odo = np.array([0.2, -0.1, 15.0])
+    jcarry = JSession(ekf_params=ep, ransac_params=rp).init_carry(
+        first_odom=odo)
+    tcarry = TSession(ekf_params=port(ep), ransac_params=port(rp),
+                      device="cpu").init_carry(first_odom=odo)
+    assert tcarry.filt.P.shape == (ep.dim + 8,) * 2
+    assert tcarry.sr_tick == int(jcarry.sr_tick) == 0
+    for f in tcarry.filt._fields:
+        np.testing.assert_allclose(n(getattr(tcarry.filt, f)),
+                                   n(getattr(jcarry.filt, f)), rtol=1e-15,
+                                   atol=0, err_msg=f)
