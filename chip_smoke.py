@@ -13,9 +13,15 @@ Phases (each prints one line; any failure exits non-zero with no result):
    and 2048 (≤ 1e-5 relative, bit-symmetric);
 3. K3 score_lines against its plain version at NH = 64, B = 1024: equal
    counts;
-4. K2 gate_costs at M = 8 and M = 300 against K = 10000 slots (+inf in
-   exactly the inactive slots, ≤ 1e-5 relative elsewhere, entries within
-   1e-4° of the bearing wrap's seam left out), K4 cov_update at D = 20003
+4. K2 gate_costs_state, one launch that reads x, P, the landmark table
+   and Rs as they lie, at M = 8 and M = 300 against K = 10000 slots on a
+   P [20003²] f32 and at M = 8 on a padded P [20480²] (NaN wherever the
+   gate does not read): +inf in exactly the inactive slots, elsewhere
+   within the bearing tolerance of checks.gate_tolerance (1e-5 relative
+   plus what a 2-ulp(360°) gap of the in-kernel ẑ_φ can move a cost),
+   the in-kernel ẑ_φ within 2 ulps of the plain version's (the gap is
+   printed), entries within 1e-4° of a wrap's seam left out; what
+   PyTorch's CUDA division by a Python float does; K4 cov_update at D = 20003
    and D = 1003, f32 (in place, ≤ 1e-5 of |P|max), K5 pair_gather on f32
    and bf16 P with duplicate, unordered and last-row-pair starts
    (bit-equal to index_select) and with out-of-range starts (clamped),
@@ -49,7 +55,8 @@ Phases (each prints one line; any failure exits non-zero with no result):
    finite state, P (20003, 20003) f32, landmarks mapped, ATE < 0.5 m, one
    launch each of K2, K4 and K5 and 1 + wall_search_timeout of K3 per
    tick, no K1 launch, no host sync in a tick; the median tick time and a
-   torch.profiler line;
+   torch.profiler line, whose device operations per tick must be fewer
+   than the 1,656 of the gate fed by torch ops (printed beside them);
 7b. the square-root path at full width: update_mode='srekf_fast' with
    rows_gather='pallas' at capacity 10000 (S (20067, 20067) f32:
    3 + 2·10000 + 64 noise-buffer dims, unpadded) for 72 ticks, so the 64th
@@ -63,18 +70,24 @@ Phases (each prints one line; any failure exits non-zero with no result):
    the recompression was handed: one launch, within 1e-5 of |S·Sᵀ|max,
    bit-symmetric, and the blocked Cholesky of its Gram within 1e-3 of the
    session's recompressed factor on the active block;
-8. each kernel timed at its path's shapes (CUDA-graph replays between
-   CUDA events; K6, ~0.3 s a call, 3 calls between CUDA events after one
-   warm-up) beside its plain version, its library yardstick and its
-   roofline bound; and the blocked Cholesky and the whole recompression
-   at D = 20067.
+8. the launch floor (a one-element add_ replayed 2000 times in one CUDA
+   graph), then each kernel timed at its path's shapes (CUDA-graph
+   replays between CUDA events; K6, ~0.3 s a call, 3 calls between CUDA
+   events after one warm-up) beside its plain version, its library
+   yardstick, its roofline bound (bytes or operations at the card's peak
+   rates) and that bound raised to the launch floor, with its share of
+   the latter; K2 also beside the torch ops that fed its strip-taking
+   predecessor; and the blocked Cholesky and the whole recompression at
+   D = 20067.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  A kernel's `launches` in the JSON is its
 count from its path's run.  K6's is 0, since no session launches it, so
 its entry also has `on_path: false` and `side_call_launches`, the launch
-on the recompression's factor in phase 7b.  This script imports nothing of JAX or of
-ekf_slam_tpu.
+on the recompression's factor in phase 7b.  Every entry also has
+`launch_floor_ms`, `floor_bound_ms` and `floor_bound_by` ("launch" where
+the floor is the larger): the bound raised to the launch floor, beside
+`bound_ms`.  This script imports nothing of JAX or of ekf_slam_tpu.
 """
 import dataclasses
 import json
@@ -93,6 +106,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+
+# the kernel path's device operations per tick when its gate kernel was
+# fed by ~20 torch ops (strips, R diagonal, bearing strip), PERF.md §5
+OPS_BEFORE_FUSED_GATE = 1656
 
 # device symbols of the port's kernels, as torch.profiler names them
 KERNEL_SYMBOLS = ("syrk_downdate_kernel", "gate_costs_kernel",
@@ -179,10 +196,11 @@ def bf16_ulp(x):
 
 def profile_ticks(torch, sess, carry, traj, t0, n):
     """Where a tick's time goes: ``n`` further ticks (from tick ``t0`` of
-    ``traj``) under torch.profiler.  Returns one line: the host window per
+    ``traj``) under torch.profiler.  Returns one line (the host window per
     tick, the device busy share of that window (union of the kernel and
     copy intervals), the device operations per tick, and the five
-    kernels with the most device time."""
+    kernels with the most device time) and the device operations per
+    tick (None where the profiler saw no device activity)."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
@@ -197,7 +215,7 @@ def profile_ticks(torch, sess, carry, traj, t0, n):
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == cuda)
     if not spans:
-        return "not measured: torch.profiler saw no device activity"
+        return "not measured: torch.profiler saw no device activity", None
     busy, end = 0.0, -math.inf
     for s, e, _ in spans:
         if e > end:
@@ -219,7 +237,7 @@ def profile_ticks(torch, sess, carry, traj, t0, n):
             f"device busy {busy / n / 1e3:.3f} ms/tick "
             f"({100 * busy / window_us:.1f}% of the window), "
             f"{len(spans) / n:.0f} device ops/tick; ours: {ours}; "
-            f"top: {top_s}")
+            f"top: {top_s}"), len(spans) / n
 
 
 def slice_params(torch, capacity, update_mode="batched", **ekf_kw):
@@ -312,10 +330,12 @@ def main():
     check(os.path.dirname(os.path.dirname(os.path.abspath(tp.__file__)))
           == HERE, f"ekf_slam_tpu_torch resolved outside {HERE}")
     from ekf_slam_tpu_torch import session as session_mod
-    from ekf_slam_tpu_torch.checks import (gate_case, pair_starts,
+    from ekf_slam_tpu_torch.checks import (bearing_gap_ulps, gate_case,
+                                           gate_tolerance, pair_starts,
                                            recompress_qr_case,
                                            score_lines_case,
                                            session_on_devices)
+    from ekf_slam_tpu_torch.ops.angles import _DEG2RAD, atan2d
     from ekf_slam_tpu_torch.ops.blocked_chol import chol_for_state
     from ekf_slam_tpu_torch.state import FilterState
     from ekf_slam_tpu_torch.ops import gating as G
@@ -381,24 +401,50 @@ def main():
     # -- 4. K2, K4, K5 and K6 against their plain versions --------------------
     S_COST = 1e6            # small enough that position costs show
     err_k2 = None
-    for M2, K2n in ((8, 10000), (300, 10000)):
-        args2, keep = gate_case(g, M2, K2n)
-        act2 = args2[6]
-        ref = G.gate_costs_ref(*args2, S_COST, True)
-        got = G.gate_costs(*args2, S_COST, True)
+    D2 = 3 + 2 * 10000
+    for M2, K2n, D2p in ((8, 10000, D2), (300, 10000, D2),
+                         (8, 10000, 20480)):
+        # P [D2p, D2p] f32, NaN wherever the gate does not read; 20480 is
+        # the tuned schedule's padded layout (ld > 3 + 2K)
+        args2, keep = gate_case(g, M2, K2n, D=D2p)
+        act2 = args2[4]
+        ref = G.gate_costs_state_ref(*args2, S_COST, True)
+        tol = gate_tolerance(args2, S_COST, True)
+        zk = torch.empty(K2n, device=dev)
+        got = G.gate_costs_state(*args2, S_COST, True, zphi_out=zk)
         torch.cuda.synchronize()
         check(torch.equal(torch.isinf(got), ~act2[None, :].expand(M2, K2n)),
-              f"K2 M={M2}: +inf not in exactly the inactive slots")
+              f"K2 M={M2} D={D2p}: +inf not in exactly the inactive slots")
         ok = keep & act2[None, :]
         diff = (got - ref).abs()[ok]
+        check(bool((diff <= tol[ok]).all()),
+              f"K2 M={M2} D={D2p}: {int((diff > tol[ok]).sum())} costs "
+              f"outside the bearing tolerance")
+        gap = bearing_gap_ulps(zk, G._bearing_strip(args2[0], args2[2]))
+        check(gap <= 2, f"K2 M={M2} D={D2p}: in-kernel bearing {gap} ulps "
+              "off the plain version's")
         rel = (diff / ref.abs()[ok]).max().item()
-        check(rel <= 1e-5, f"K2 M={M2} relative error {rel} > 1e-5")
+        second = int((diff > 1e-5 * ref.abs()[ok]).sum())
         if err_k2 is None:
             err_k2, args8 = diff.max().item(), args2
-        log(f"phase 4 K2 M={M2} K={K2n} ok: relative error {rel:.3e}, "
-            f"max|Δ| {diff.max().item():.3e}, {int(ok.sum())} entries "
-            f"compared, {int((~keep).sum())} at the wrap's seam left out")
-    del ref, got
+        log(f"phase 4 K2 M={M2} K={K2n} P [{D2p}²] f32 ok: ẑ_φ gap "
+            f"{gap:.0f} ulps, {int((diff == 0).sum())} of {int(ok.sum())} "
+            f"costs bit-equal, relative error {rel:.3e}, max|Δ| "
+            f"{diff.max().item():.3e}, {second} entries needed the bearing "
+            f"term of the tolerance, {int((~keep).sum())} at a wrap's seam "
+            "left out")
+    del ref, got, tol, args2
+    # what PyTorch's CUDA division by a Python float does: the kernel's
+    # atan2d multiplies by the float32 reciprocal of float32(π/180)
+    d8 = args8[2] - args8[0][:2]
+    rad = torch.atan2(d8[:, 1], d8[:, 0])
+    deg = atan2d(d8[:, 1], d8[:, 0])
+    by_recip = int((deg == rad * G._RAD2DEG_F32).sum())
+    by_div = int((deg == rad / torch.tensor(_DEG2RAD, device=dev)).sum())
+    log(f"phase 4 torch's CUDA atan2(y, x) / float(π/180): equal to the "
+        f"product with float32 1/float32(π/180) in {by_recip} of "
+        f"{deg.numel()} slots, to the true float32 quotient in {by_div}")
+    del d8, rad, deg
 
     Rk = 2 * 8
     for Dr in (20003, 1003):
@@ -464,7 +510,8 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 5. the session, card against CPU ---------------------------------------
-    counted = {"syrk_downdate": K.syrk_downdate, "gate_costs": G.gate_costs,
+    counted = {"syrk_downdate": K.syrk_downdate,
+               "gate_costs": G.gate_costs_state,
                "score_lines": K.score_lines, "cov_update": K.cov_update,
                "pair_gather": K.pair_gather, "syrk_gram": K.syrk_gram}
     SR_PATH = dict(update_mode="srekf_fast", rows_gather="pallas")
@@ -563,7 +610,8 @@ def main():
     log(f"phase 6 tuned path full width ok: capacity {ep.capacity}, "
         f"D={filt.P.shape[0]} bf16, " + run6["summary"])
     log("phase 6 profile: "
-        + profile_ticks(torch, run6["sess"], run6["carry"], traj, T, T_PROF))
+        + profile_ticks(torch, run6["sess"], run6["carry"], traj, T,
+                        T_PROF)[0])
     launches6 = launches
     P6 = filt.P                         # the tuned path's P, for phase 8
     del run6, filt
@@ -587,9 +635,15 @@ def main():
     log(f"phase 7 kernel path full width ok: capacity {ep7.capacity}, "
         f"D={D7} f32, "
         + run7["summary"])
-    log("phase 7 profile: "
-        + profile_ticks(torch, run7["sess"], run7["carry"], traj, T7,
-                        T_PROF))
+    prof7, ops7 = profile_ticks(torch, run7["sess"], run7["carry"], traj, T7,
+                                T_PROF)
+    log(f"phase 7 profile: {prof7}")
+    check(ops7 is not None and ops7 < OPS_BEFORE_FUSED_GATE,
+          f"kernel path: {ops7} device ops per tick, not fewer than the "
+          f"{OPS_BEFORE_FUSED_GATE} of the gate fed by torch ops")
+    log(f"phase 7 device ops per tick: {ops7:.0f} with the gate as one "
+        f"launch from the state, {OPS_BEFORE_FUSED_GATE} when torch ops "
+        f"built its strips and bearing (PERF.md §5)")
     P7 = filt7.P.clone()
     del run7, filt7
     torch.cuda.empty_cache()
@@ -686,7 +740,7 @@ def main():
         f"{statistics.median(ordinary):.3f} ms, recompression tick "
         f"{tick9[rec]:.3f} ms (CUDA events)")
     log("phase 7b profile: "
-        + profile_ticks(torch, sess9, carry9, traj, T_SR, T_PROF))
+        + profile_ticks(torch, sess9, carry9, traj, T_SR, T_PROF)[0])
     del carry9, filt9, outs9, sess9
     torch.cuda.empty_cache()
 
@@ -720,16 +774,28 @@ def main():
         f"{d_act}×{d_act} block")
     del L6, L_sess
 
-    # -- 8. kernel timings at the paths' shapes -----------------------------------
+    # -- 8. the launch floor and the kernel timings at the paths' shapes ------
+    # the launch floor: a one-element add_ replayed N times in one CUDA
+    # graph, the same harness as every kernel's time below
+    one = torch.zeros(1, device=dev)
+    floor_ms = cuda_ms(torch, lambda: one.add_(1.0), 2000)
+    del one
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes,
               ops, peak, library_ms):
-        bb = (nbytes / HBM_BYTES_PER_S, ops / peak)
+        # bound_ms: bytes or operations at the card's peak rates; beside
+        # it the bound with the launch floor, which no launch goes under
+        bb = (nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3)
+        bound = max(bb)
         kernels[name] = dict(
             route="cuda", source=f"ekf_slam_tpu_torch/csrc/{source}",
             replaces=replaces, launches=launches, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=max(bb) * 1e3,
+            plain_ms=plain_ms, bound_ms=bound,
             bound_by="bytes" if bb[0] >= bb[1] else "operations",
-            library_ms=library_ms)
+            library_ms=library_ms, launch_floor_ms=floor_ms,
+            floor_bound_ms=max(bound, floor_ms),
+            floor_bound_by=("launch" if floor_ms > bound else
+                            "bytes" if bb[0] >= bb[1] else "operations"))
 
     Dm = P6.shape[0]
     Rm = 2 * ep.max_obs
@@ -747,19 +813,24 @@ def main():
           cuda_ms(torch, lambda: torch.addmm(Pm, Wm, Wm.T, alpha=-1), 5))
     del Pm, P6
 
-    M8, K8 = args8[2].shape[0], args8[4].shape[0]
-    strip_ms = cuda_ms(torch, lambda: G._bearing_strip(args8[0], args8[4]),
-                       200)
+    # K2 at the kernel path's shape: M = 8 against K = 10000 on P [20003²]
+    M8, K8 = args8[5].shape[0], args8[2].shape[0]
+    feed_ms = cuda_ms(torch, lambda: (G.strip_args(*args8), G._bearing_strip(
+        args8[0], args8[2])), 200)
     entry("gate_costs", "gate_costs.cu",
           "ekf_slam_tpu/ops/pallas/gating.py:143",
           launches7["gate_costs"], err_k2,
-          cuda_ms(torch, lambda: G.gate_costs(*args8, S_COST, True), 200),
-          cuda_ms(torch, lambda: G.gate_costs_ref(*args8, S_COST, True), 50),
-          # pose, prr, zs, rdiag; lm, sig, active, prl, pll; out
-          4 * (3 + 9 + 5 * M8) + K8 * (4 * 2 + 4 + 1 + 4 * 6 + 4 * 4)
-          + 4 * M8 * K8,
-          216 * K8 + 30 * M8 * K8,         # per slot Φ0, per pair the cost
+          cuda_ms(torch, lambda: G.gate_costs_state(*args8, S_COST, True),
+                  200),
+          cuda_ms(torch, lambda: G.gate_costs_state_ref(*args8, S_COST,
+                                                        True), 50),
+          # P's pose rows, two 32-byte sectors of diagonal block per slot,
+          # lm, sig, active; out
+          3 * 2 * K8 * 4 + 2 * K8 * 32 + K8 * (8 + 4 + 1) + 4 * M8 * K8,
+          # per slot the bearing, Jacobian and Φ0, per pair the cost
+          256 * K8 + 30 * M8 * K8,
           F32_FLOPS, None)
+    del args8
 
     entry("score_lines", "score_lines.cu",
           "ekf_slam_tpu/ops/pallas/kernels.py:689",
@@ -822,11 +893,18 @@ def main():
     for name, k in kernels.items():
         log(f"phase 8 {name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.6f} by "
-            f"{k['bound_by']}, {k['launches']} launches on its path, "
+            f"{k['bound_by']}, with the launch floor "
+            f"{k['floor_bound_ms']:.6f} by {k['floor_bound_by']}: "
+            f"bound/time {100 * k['floor_bound_ms'] / k['ms']:.1f}%; "
+            f"{k['launches']} launches on its path, "
             f"{k.get('side_call_launches', 0)} beside it)")
-    log(f"phase 8 gate_costs: of its {kernels['gate_costs']['ms']:.4f} ms, "
-        f"the bearing strip computed by torch before the launch takes "
-        f"{strip_ms:.4f} ms")
+    log(f"phase 8 launch floor: {floor_ms:.6f} ms a launch (a one-element "
+        f"add_ replayed 2000 times in one CUDA graph)")
+    log(f"phase 8 gate_costs: {kernels['gate_costs']['ms']:.4f} ms as one "
+        f"launch from the state, against 0.0390 ms for the strip-taking "
+        f"launch with its bearing strip before it (PERF.md §6); the torch "
+        f"ops that fed that launch (strips, R diagonal, bearing strip) take "
+        f"{feed_ms:.4f} ms here")
     log(f"phase 8 square-root recompression at D={D9} f32: the blocked "
         f"Cholesky (chol_for_state) {chol_ms:.3f} ms, the whole "
         f"sr_recompress (plain Gram + Cholesky + one host read) "

@@ -75,7 +75,7 @@ class EKFParams:
     guard_max_jump: float = None
     ref_compat: bool = True
     #: the batched session's kernel path: the fused gate kernel
-    #: (ops/gating.gate_costs) in place of the plain gate, and with
+    #: (ops/gating.gate_costs_state) in place of the plain gate, and with
     #: non-bf16 P and the gemm correction the in-place cov_update kernel
     #: (ops/kernels.cov_update).  On TPU this is the JAX package's measured
     #: experiment setting, not a default.

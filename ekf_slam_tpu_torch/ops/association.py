@@ -8,7 +8,8 @@ over [K]- and [M,K]-shaped tensors — one strip read of P.
 
 ``gate_batch(use_pallas=True)`` takes the cost plane from the fused gate
 kernel instead (ops/gating.py, the JAX package's gating.gate_costs_pallas),
-with that kernel's narrower contract.
+with that kernel's narrower contract: one launch that reads the state
+itself.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from ..config import ASSOC_ML, ASSOC_ML_UNIQUE, EKFParams, rounded
 from .angles import atan2d, wrap_to_180, wrap_to_360
-from .gating import gate_costs, strips_from_state
+from .gating import gate_costs_state
 
 
 def _exclusive(is_new: torch.Tensor, slot: torch.Tensor,
@@ -161,19 +162,19 @@ def gate_batch(state, zs: torch.Tensor, Rs: torch.Tensor, params: EKFParams,
     jnp.argmin does, Correspondence.m:78-86).
 
     ``use_pallas``: the [M,K] costs come from the fused gate kernel
-    (ops/gating.gate_costs: the kernel on CUDA tensors, its plain version
-    on CPU tensors) instead of ``batch_costs``."""
+    (ops/gating.gate_costs_state: the kernel on CUDA tensors, its plain
+    version on CPU tensors) instead of ``batch_costs``."""
     if use_pallas:
         # the fused gate kernel (ops/gating.py), held to the JAX branch
         # (association.py:273-294): position + signature cost whatever
         # params.association says, R's diagonal only, the det form,
-        # +inf from the kernel in inactive slots; ``strips`` is ignored
-        dt = state.x.dtype
-        lm, sig, act, prr, prl, pll = strips_from_state(state)
-        rdiag = torch.stack([Rs[:, 0, 0], Rs[:, 1, 1]], dim=-1).to(dt)
-        cost = gate_costs(state.x[:3], prr.to(dt), zs.to(dt), rdiag, lm,
-                          sig, act, prl.to(dt), pll.to(dt), params.s_cost,
-                          wrap_innovation=not params.ref_compat)
+        # +inf from the kernel in inactive slots; ``strips`` is ignored.
+        # On CUDA one launch reads x, P, the landmark table and Rs as
+        # they lie: no torch op between the state and the kernel.
+        cost = gate_costs_state(state.x, state.P, state.landmarks,
+                                state.sig, state.active, zs, Rs,
+                                params.s_cost,
+                                wrap_innovation=not params.ref_compat)
     else:
         position_cost, signature_cost = batch_costs(state, zs, Rs, params,
                                                     strips=strips)

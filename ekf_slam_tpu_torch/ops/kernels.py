@@ -14,8 +14,8 @@ launch counters and the nvcc + ctypes loader.
   the same registers (csrc/syrk_gram.cu; replaces ``syrk_gram_pallas``).
 
 The fused gate kernel (csrc/gate_costs.cu, ``gating.gate_costs_pallas``
-in the JAX package) has its wrapper in ``ops/gating.py`` and is built and
-loaded here with the others.
+in the JAX package) has its wrapper, ``gate_costs_state``, in
+``ops/gating.py`` and is built and loaded here with the others.
 
 Each wrapper runs its kernel on CUDA tensors and its plain version
 (``*_ref``) on CPU tensors, and on nothing else: a CUDA tensor the kernel
@@ -75,9 +75,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         "syrk_downdate": [vp, vp, ci, ci, ci, ci, vp],
         # (points, valid, lines, B, NH, thresh, out, stream)
         "score_lines": [vp, vp, vp, ci, ci, ctypes.c_float, vp, vp],
-        # (pose, prr, zs, rdiag, lm, zphi, sig, active, prl, pll,
-        #  1/s_cost, wrap, M, K, out, stream)
-        "gate_costs": [vp] * 10 + [ctypes.c_float, ci, ci, ci, vp, vp],
+        # (x, P, ld, P dtype code, lm, sig, active, zs, Rs, rad2deg,
+        #  1/s_cost, wrap, M, K, out, zphi_out, stream)
+        "gate_costs": [vp, vp, ctypes.c_int64, ci] + [vp] * 5
+                      + [ctypes.c_float, ctypes.c_float, ci, ci, ci, vp, vp,
+                         vp],
         # (P, K, V, N, D, R, stream)
         "cov_update": [vp, vp, vp, ci, ci, ci, vp],
         # (P, starts, starts are int64, pairs, rows, D, element bytes,

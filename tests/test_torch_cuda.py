@@ -15,7 +15,8 @@ This file imports neither JAX nor ekf_slam_tpu."""
 import pytest
 import torch
 
-from ekf_slam_tpu_torch.checks import (gate_case, pair_starts,
+from ekf_slam_tpu_torch.checks import (bearing_gap_ulps, gate_case,
+                                       gate_tolerance, pair_starts,
                                        recompress_qr_case, score_lines_case,
                                        session_on_devices)
 from ekf_slam_tpu_torch.ops import gating as G
@@ -70,27 +71,52 @@ def test_score_lines_kernel_matches_plain(dev):
     assert torch.equal(got, K.score_lines_ref(pts, valid, lines, thresh))
 
 
-@pytest.mark.parametrize("M,K_,wrap", [(8, 3000, True), (300, 700, True),
-                                       (8, 257, False)])
-def test_gate_kernel_matches_plain(dev, M, K_, wrap):
-    """+inf in exactly the inactive slots; elsewhere within 1e-5 relative
-    of the plain version (built without FMA contraction, the kernel rounds
-    as the plain version's PyTorch kernels do), entries within 1e-4° of
-    the wrap's seam left out."""
+@pytest.mark.parametrize("M,K_,wrap,pad,noise", [
+    (8, 3000, True, 0, 0.05), (300, 700, True, 0, 0.05),
+    (8, 257, False, 0, 0.05), (70, 1000, True, 125, 0.05),
+    (8, 3000, True, 0, 0.0), (8, 257, False, 61, 0.0)])
+def test_gate_kernel_matches_plain(dev, M, K_, wrap, pad, noise):
+    """The state-taking gate: one launch from x, P (padded by ``pad``
+    dims in the padded cases, NaN wherever the gate does not read), the
+    landmark table and Rs.  +inf in exactly the inactive slots; elsewhere
+    within ``checks.gate_tolerance`` of the plain version: the kernel
+    rounds every other operation as the plain version's PyTorch kernels
+    do (built without FMA contraction) and computes the bearing itself
+    with atan2f, which may round up to 2 ulp(360°) off the plain
+    version's ẑ_φ.  ``noise`` = 0 re-observes landmarks exactly, so the
+    bearing innovation is a few ulps and an ulp of ẑ_φ would show.
+    Entries within 1e-4° of the wraps' seams are left out."""
     g = torch.Generator(device=dev).manual_seed(M + K_)
-    args, keep = gate_case(g, M, K_)
-    active = args[6]
-    want = G.gate_costs_ref(*args, 1e6, wrap)
-    before = G.gate_costs.launches
-    got = G.gate_costs(*args, 1e6, wrap)
+    args, keep = gate_case(g, M, K_, D=3 + 2 * K_ + pad, noise=noise)
+    active = args[4]
+    want = G.gate_costs_state_ref(*args, 1e6, wrap)
+    tol = gate_tolerance(args, 1e6, wrap)
+    zphi = torch.empty(K_, device=dev)
+    before = G.gate_costs_state.launches
+    got = G.gate_costs_state(*args, 1e6, wrap, zphi_out=zphi)
     torch.cuda.synchronize()
-    assert G.gate_costs.launches == before + 1
+    assert G.gate_costs_state.launches == before + 1
     assert got.shape == (M, K_) and got.dtype == torch.float32
     assert torch.isinf(got[:, ~active]).all()
     assert torch.isfinite(got[:, active]).all()
     ok = keep & active[None, :]
-    rel = ((got - want).abs() / want.abs())[ok]
-    assert rel.max().item() <= 1e-5
+    assert ((got - want).abs()[ok] <= tol[ok]).all()
+    assert bearing_gap_ulps(zphi, G._bearing_strip(args[0], args[2])) <= 2
+
+
+def test_gate_kernel_takes_bf16_p(dev):
+    """A bfloat16 P (the kernel widens each element on load, as the plain
+    version's strips are cast to the state's float32): within the same
+    tolerance of the plain version on the same bf16 P."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    args, keep = gate_case(g, 8, 1000)
+    args = (args[0], args[1].to(torch.bfloat16)) + args[2:]
+    want = G.gate_costs_state_ref(*args, 1e6, True)
+    tol = gate_tolerance(args, 1e6, True)
+    got = G.gate_costs_state(*args, 1e6, True)
+    ok = keep & args[4][None, :]
+    assert torch.isfinite(got[ok]).all()
+    assert ((got - want).abs()[ok] <= tol[ok]).all()
 
 
 @pytest.mark.parametrize("N,D,R", [(1003, 1003, 16), (777, 1029, 40),
@@ -158,6 +184,7 @@ def test_kernel_path_session_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("which", ["syrk_f64", "syrk_strided",
                                    "score_f64", "gate_f64", "gate_strided",
+                                   "gate_narrow_ld", "gate_f64_x",
                                    "cov_f64", "cov_strided", "gather_f64"])
 def test_wrappers_raise_on_cuda_inputs_the_kernels_do_not_take(dev, which):
     """A CUDA tensor the kernel does not take raises; nothing falls back
@@ -178,11 +205,16 @@ def test_wrappers_raise_on_cuda_inputs_the_kernels_do_not_take(dev, which):
         elif which.startswith("gate"):
             g = torch.Generator(device=dev).manual_seed(0)
             args = list(gate_case(g, 4, 64)[0])
-            if which == "gate_f64":
-                args[8] = args[8].double()
+            if which == "gate_f64":                 # P neither f32 nor bf16
+                args[1] = args[1].double()
+            elif which == "gate_strided":           # non-unit inner stride
+                args[1] = torch.zeros((131, 262), device=dev)[:, ::2]
+            elif which == "gate_narrow_ld":         # K > (ld − 3)/2
+                args[1] = torch.zeros(131 * 131, device=dev).as_strided(
+                    (131, 131), (130, 1))
             else:
-                args[7] = torch.zeros((6, 64), device=dev).T
-            G.gate_costs(*args, 1.0)
+                args[0] = args[0].double()
+            G.gate_costs_state(*args, 1.0)
         elif which.startswith("cov"):
             P = torch.zeros((64, 64), device=dev)
             Kg, V = torch.zeros((64, 4), device=dev), torch.zeros((64, 4),
