@@ -6,13 +6,22 @@ NVIDIA H100.
 
 Phases (each prints one line; any failure exits non-zero with no result):
 
-1. build the six CUDA kernels from ekf_slam_tpu_torch/csrc (one nvcc per
+1. build the seven CUDA kernels from ekf_slam_tpu_torch/csrc (one nvcc per
    source, started together) and print the card's name and power limit;
 2. K1 syrk_downdate against its plain version: bf16 at D = 20480, R = 16
    (≤ 1 bf16 ulp of |P|max, output bit-symmetric) and f32 at D = 1003
    and 2048 (≤ 1e-5 relative, bit-symmetric);
 3. K3 score_lines against its plain version at NH = 64, B = 1024: equal
-   counts;
+   counts; then K3's one-launch wall search (wall_search: the initial
+   scoring and every greedy round of find_walls_batched in one thread
+   block) against its plain version through checks.wall_search_compare,
+   on scans of 1024 and 1000 beams with NH = 64 and 7 lines, T = 4: at
+   the flagship settings every round's counts, ok and pool bit-equal; at
+   examples/large_world_slam.py's (refits, splits, RMS gate) a round may
+   part only at a decision within the f32 rounding band of its cut (each
+   one printed); lines and statistics within checks.wall_search_tolerance
+   of the f64 plain version; then a scan of 8192 beams, and the largest
+   B a block's shared memory holds at NH = 64;
 4. K2 gate_costs_state, one launch that reads x, P, the landmark table
    and Rs as they lie, at M = 8 and M = 300 against K = 10000 slots on a
    P [20003²] f32 and at M = 8 on a padded P [20480²] (NaN wherever the
@@ -45,28 +54,31 @@ Phases (each prints one line; any failure exits non-zero with no result):
    (D = 20480 padded, bf16 P, rows + syrk) for 64 ticks of the flagship
    simulator run, with every kernel counter set to 0 just before and read
    just after: finite state, landmarks mapped, ATE < 0.5 m, one SYRK launch
-   and 1 + wall_search_timeout scoring launches per tick, no K2, K4 or K5
+   and one wall_search launch per tick, no score_lines, K2, K4 or K5
    launch, no host sync in a tick; then the median tick time and a
    torch.profiler line (device busy share, device operations per tick,
-   the kernels with most device time);
+   the kernels with most device time), whose device operations per tick
+   must be fewer than with the rounds as torch ops (printed beside them);
 7. the kernel path at full width: the same run with use_pallas,
    rows_gather='pallas' and the gemm correction (D = 20003 unpadded, f32
    P) for 32 ticks, counters set to 0 just before and read just after:
    finite state, P (20003, 20003) f32, landmarks mapped, ATE < 0.5 m, one
-   launch each of K2, K4 and K5 and 1 + wall_search_timeout of K3 per
-   tick, no K1 launch, no host sync in a tick; the median tick time and a
+   launch each of K2, K4, K5 and wall_search per tick, no K1 or
+   score_lines launch, no host sync in a tick; the median tick time and a
    torch.profiler line, whose device operations per tick must be fewer
-   than the 1,656 of the gate fed by torch ops (printed beside them);
+   than with the rounds as torch ops (printed beside them);
 7b. the square-root path at full width: update_mode='srekf_fast' with
    rows_gather='pallas' at capacity 10000 (S (20067, 20067) f32:
    3 + 2·10000 + 64 noise-buffer dims, unpadded) for 72 ticks, so the 64th
    recompresses, counters set to 0 just before and read just after:
-   finite state, landmarks mapped, ATE < 0.5 m, one K5 and
-   1 + wall_search_timeout K3 launches per tick and no K1, K2, K4 or K6
+   finite state, landmarks mapped, ATE < 0.5 m, one K5 and one
+   wall_search launch per tick and no K1, K2, K4, K6 or score_lines
    launch, no host sync on an ordinary tick and exactly one on the
    recompression tick, S lower triangular with its 64 buffer columns
    exactly 0 after the recompression; the median ordinary tick, the
-   recompression tick and a torch.profiler line.  Then K6 on the factor
+   recompression tick and a torch.profiler line, whose device operations
+   per ordinary tick must be fewer than with the rounds as torch ops.
+   Then K6 on the factor
    the recompression was handed: one launch, within 1e-5 of |S·Sᵀ|max,
    bit-symmetric, and the blocked Cholesky of its Gram within 1e-3 of the
    session's recompressed factor on the active block;
@@ -77,14 +89,19 @@ Phases (each prints one line; any failure exits non-zero with no result):
    yardstick, its roofline bound (bytes or operations at the card's peak
    rates) and that bound raised to the launch floor, with its share of
    the latter; K2 also beside the torch ops that fed its strip-taking
-   predecessor; and the blocked Cholesky and the whole recompression at
+   predecessor; wall_search at the flagship and large_world settings, as
+   CUDA-graph replays (device time) and as eager calls (host clock around
+   synchronised calls: what a tick pays), beside its plain version timed
+   both ways; and the blocked Cholesky and the whole recompression at
    D = 20067.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  A kernel's `launches` in the JSON is its
 count from its path's run.  K6's is 0, since no session launches it, so
 its entry also has `on_path: false` and `side_call_launches`, the launch
-on the recompression's factor in phase 7b.  Every entry also has
+on the recompression's factor in phase 7b; so has score_lines's, whose
+scoring now runs inside wall_search on every path (its side calls are
+phase 3's).  Every entry also has
 `launch_floor_ms`, `floor_bound_ms` and `floor_bound_by` ("launch" where
 the floor is the larger): the bound raised to the launch floor, beside
 `bound_ms`.  This script imports nothing of JAX or of ekf_slam_tpu.
@@ -110,11 +127,15 @@ F32_FLOPS = 67e12
 # the kernel path's device operations per tick when its gate kernel was
 # fed by ~20 torch ops (strips, R diagonal, bearing strip), PERF.md §5
 OPS_BEFORE_FUSED_GATE = 1656
+# device operations per tick when the extractor's rounds ran as torch ops
+# around 1 + T score_lines launches (PERF.md §5)
+OPS_BEFORE_WALL_SEARCH = dict(tuned=2069, kernel=1634, srekf_fast=2094)
 
 # device symbols of the port's kernels, as torch.profiler names them
 KERNEL_SYMBOLS = ("syrk_downdate_kernel", "gate_costs_kernel",
-                  "score_lines_kernel", "cov_update_kernel",
-                  "pair_gather_kernel", "syrk_gram_kernel")
+                  "score_lines_kernel", "wall_search_kernel",
+                  "cov_update_kernel", "pair_gather_kernel",
+                  "syrk_gram_kernel")
 
 
 def log(msg):
@@ -177,6 +198,40 @@ def event_ms(torch, fn, iters=3, warmup=1):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def eager_ms(torch, fn, iters, warmup=3):
+    """Mean host-clock time of one synchronised-at-the-end call of ``fn``
+    run eagerly ``iters`` times: what a caller that launches it from
+    Python pays, the host's launch work included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def wall_search_work(B, NH, params, n_ok):
+    """Bytes and operations one wall search needs on its inputs: points,
+    valid, trial lines and trial_ok read once, lines, ok, the pool and the
+    stats written once; the initial scoring and each accepting round's
+    re-scoring (7 operations a distance test, as K3's entry counts), and
+    per round ~30 per point (the trial distances, the five fit sums, the
+    RMS, chord and spread passes), ~11 per point a refine pass and, per
+    split pass, a bitonic sort of the next power of two ≥ B plus ~30 per
+    point.  ``n_ok`` is the rounds this run accepts."""
+    T = params.wall_search_timeout
+    nbytes = B * 8 + B + NH * 8 + NH + T * 8 + T + B + T * 12
+    P2 = 1 << max(1, (B - 1).bit_length())
+    lg = P2.bit_length() - 1
+    passes = 2 * (params.split_gap > 0) + 2 * (params.split_kink_deg > 0)
+    ops = ((1 + n_ok) * NH * B * 7
+           + T * (30 * B + params.refine_passes * 11 * B
+                  + passes * (P2 // 2 * lg * (lg + 1) // 2 + 30 * B)))
+    return nbytes, ops
 
 
 def pose_gaps(a, b):
@@ -334,7 +389,10 @@ def main():
                                            gate_tolerance, pair_starts,
                                            recompress_qr_case,
                                            score_lines_case,
-                                           session_on_devices)
+                                           session_on_devices,
+                                           wall_search_case,
+                                           wall_search_compare)
+    from ekf_slam_tpu_torch.ops.ransac import wall_search_ref
     from ekf_slam_tpu_torch.ops.angles import _DEG2RAD, atan2d
     from ekf_slam_tpu_torch.ops.blocked_chol import chol_for_state
     from ekf_slam_tpu_torch.state import FilterState
@@ -389,6 +447,7 @@ def main():
 
     # -- 3. K3 against its plain version ---------------------------------------
     NH, B, thresh = 64, 1024, 0.25
+    sl_before = K.score_lines.launches
     pts, valid, lines = score_lines_case(g, NH, B, thresh)
     c_ref = K.score_lines_ref(pts, valid, lines, thresh)
     c_k = K.score_lines(pts, valid, lines, thresh)
@@ -397,6 +456,40 @@ def main():
     check(err_k3 == 0, f"K3 counts differ by up to {err_k3}")
     log(f"phase 3 K3 NH={NH} B={B} ok: counts equal "
         f"(sum {int(c_k.sum().item())})")
+    # K3's one-launch wall search against its plain version (whose f32
+    # run on the card launches score_lines, 1 + T times a case)
+    err_ws = 0.0
+    for setting in ("flagship", "large_world"):
+        for seed, Bw, NHw in ((0, 1024, 64), (1, 1024, 64), (2, 1000, 7),
+                              (3, 1024, 7), (4, 1000, 64)):
+            argsw, pw = wall_search_case(seed, Bw, NHw, setting, dev)
+            res = wall_search_compare(argsw, pw, setting == "flagship")
+            check(not res["failures"], f"wall_search {setting} seed {seed} "
+                  f"B={Bw} NH={NHw}: {res['failures']}")
+            if setting == "flagship":
+                err_ws = max(err_ws, res["max_abs_err"])
+            log(f"phase 3 wall_search {setting} seed {seed} B={Bw} NH={NHw} "
+                f"T={pw.wall_search_timeout} ok: {res['accepted']} walls, "
+                f"rounds compared {res['compared']}, worst gap/tolerance "
+                f"{res['ratio']:.3f}, feet max|Δ| against the f32 plain "
+                f"version {res['max_abs_err']:.3e} m"
+                + "".join(f"; {x}" for x in res["notes"]))
+    # a scan eight times the simulator's, and the largest a block holds
+    argsw, pw = wall_search_case(5, 8192, 64, "flagship", dev)
+    res = wall_search_compare(argsw, pw, True)
+    check(not res["failures"], f"wall_search B=8192: {res['failures']}")
+    lib_ws = K._lib("wall_search")
+    limit = lib_ws.wall_search_smem_limit(torch.cuda.current_device())
+    lo, hi = 1, 1 << 16                 # the largest B whose layout fits
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = ((mid, hi) if lib_ws.wall_search_smem(mid, 64) <= limit
+                  else (lo, mid - 1))
+    log(f"phase 3 wall_search flagship seed 5 B=8192 NH=64 ok: "
+        f"{res['accepted']} walls, rounds compared {res['compared']}, worst "
+        f"gap/tolerance {res['ratio']:.3f}; a block may take {limit} bytes "
+        f"of dynamic shared memory: B ≤ {lo} at NH = 64")
+    side_sl = K.score_lines.launches - sl_before
 
     # -- 4. K2, K4, K5 and K6 against their plain versions --------------------
     S_COST = 1e6            # small enough that position costs show
@@ -512,22 +605,22 @@ def main():
     # -- 5. the session, card against CPU ---------------------------------------
     counted = {"syrk_downdate": K.syrk_downdate,
                "gate_costs": G.gate_costs_state,
-               "score_lines": K.score_lines, "cov_update": K.cov_update,
-               "pair_gather": K.pair_gather, "syrk_gram": K.syrk_gram}
+               "score_lines": K.score_lines, "wall_search": K.wall_search,
+               "cov_update": K.cov_update, "pair_gather": K.pair_gather,
+               "syrk_gram": K.syrk_gram}
     SR_PATH = dict(update_mode="srekf_fast", rows_gather="pallas")
     for path, kw, ours, T4 in (
             ("tuned", dict(pht_mode="rows", correction="syrk"),
-             ("syrk_downdate",), 32),
+             ("syrk_downdate", "wall_search"), 32),
             ("kernel", dict(pht_mode="rows", **KERNEL_PATH),
-             ("gate_costs", "cov_update", "pair_gather"), 32),
+             ("gate_costs", "cov_update", "pair_gather", "wall_search"), 32),
             ("srekf_fast", dict(SR_PATH, sr_noise_buffer=16),
-             ("pair_gather",), 80)):
+             ("pair_gather", "wall_search"), 80)):
         ep4, rp4 = slice_params(torch, 256, **kw)
         for fn in counted.values():
             fn.launches = 0
         outs4 = session_on_devices(ep4, rp4, T4, 1024, ("cuda", "cpu"))
-        got4 = {k: fn.launches for k, fn in counted.items()
-                if k != "score_lines"}
+        got4 = {k: fn.launches for k, fn in counted.items()}
         want4 = {k: T4 if k in ours else 0 for k in got4}
         check(got4 == want4, f"{path} path on the card launched {got4}, "
               f"expected {want4}")
@@ -601,17 +694,22 @@ def main():
     filt, launches = run6["carry"].filt, run6["launches"]
     check(filt.P.shape == (20480, 20480) and filt.P.dtype == torch.bfloat16,
           f"P is {tuple(filt.P.shape)} {filt.P.dtype}")
-    expect_sl = T * (1 + rp.wall_search_timeout)
-    check(launches == dict(syrk_downdate=T, gate_costs=0,
-                           score_lines=expect_sl, cov_update=0,
-                           pair_gather=0, syrk_gram=0),
+    check(launches == dict(syrk_downdate=T, gate_costs=0, score_lines=0,
+                           wall_search=T, cov_update=0, pair_gather=0,
+                           syrk_gram=0),
           f"tuned path launches {launches}, expected {T} syrk_downdate, "
-          f"{expect_sl} score_lines and no other")
+          f"{T} wall_search and no other")
     log(f"phase 6 tuned path full width ok: capacity {ep.capacity}, "
         f"D={filt.P.shape[0]} bf16, " + run6["summary"])
-    log("phase 6 profile: "
-        + profile_ticks(torch, run6["sess"], run6["carry"], traj, T,
-                        T_PROF)[0])
+    prof6, ops6 = profile_ticks(torch, run6["sess"], run6["carry"], traj, T,
+                                T_PROF)
+    log(f"phase 6 profile: {prof6}")
+    check(ops6 is not None and ops6 < OPS_BEFORE_WALL_SEARCH["tuned"],
+          f"tuned path: {ops6} device ops per tick, not fewer than the "
+          f"{OPS_BEFORE_WALL_SEARCH['tuned']} with the rounds as torch ops")
+    log(f"phase 6 device ops per tick: {ops6:.0f} with the wall search as "
+        f"one launch, {OPS_BEFORE_WALL_SEARCH['tuned']} with its rounds as "
+        f"torch ops around 1 + T score_lines launches (PERF.md §5)")
     launches6 = launches
     P6 = filt.P                         # the tuned path's P, for phase 8
     del run6, filt
@@ -627,9 +725,9 @@ def main():
     D7 = ep7.dim
     check(filt7.P.shape == (D7, D7) and filt7.P.dtype == torch.float32,
           f"kernel path P is {tuple(filt7.P.shape)} {filt7.P.dtype}")
-    expect7 = dict(syrk_downdate=0, gate_costs=T7,
-                   score_lines=T7 * (1 + rp7.wall_search_timeout),
-                   cov_update=T7, pair_gather=T7, syrk_gram=0)
+    expect7 = dict(syrk_downdate=0, gate_costs=T7, score_lines=0,
+                   wall_search=T7, cov_update=T7, pair_gather=T7,
+                   syrk_gram=0)
     check(launches7 == expect7,
           f"kernel path launches {launches7}, expected {expect7}")
     log(f"phase 7 kernel path full width ok: capacity {ep7.capacity}, "
@@ -638,12 +736,13 @@ def main():
     prof7, ops7 = profile_ticks(torch, run7["sess"], run7["carry"], traj, T7,
                                 T_PROF)
     log(f"phase 7 profile: {prof7}")
-    check(ops7 is not None and ops7 < OPS_BEFORE_FUSED_GATE,
+    check(ops7 is not None and ops7 < OPS_BEFORE_WALL_SEARCH["kernel"],
           f"kernel path: {ops7} device ops per tick, not fewer than the "
-          f"{OPS_BEFORE_FUSED_GATE} of the gate fed by torch ops")
-    log(f"phase 7 device ops per tick: {ops7:.0f} with the gate as one "
-        f"launch from the state, {OPS_BEFORE_FUSED_GATE} when torch ops "
-        f"built its strips and bearing (PERF.md §5)")
+          f"{OPS_BEFORE_WALL_SEARCH['kernel']} with the rounds as torch ops")
+    log(f"phase 7 device ops per tick: {ops7:.0f} with the wall search as "
+        f"one launch, {OPS_BEFORE_WALL_SEARCH['kernel']} with its rounds as "
+        f"torch ops, {OPS_BEFORE_FUSED_GATE} when torch ops also "
+        f"built the gate's strips and bearing (PERF.md §5)")
     P7 = filt7.P.clone()
     del run7, filt7
     torch.cuda.empty_cache()
@@ -717,9 +816,9 @@ def main():
     ate9 = W.ate_rmse(torch.stack([o.pose for o in outs9])[:, :2],
                       traj.truth[:T_SR, :2]).item()
     check(ate9 < 0.5, f"square-root path ATE {ate9} m")
-    expect9 = dict(syrk_downdate=0, gate_costs=0,
-                   score_lines=T_SR * (1 + rp9.wall_search_timeout),
-                   cov_update=0, pair_gather=T_SR, syrk_gram=0)
+    expect9 = dict(syrk_downdate=0, gate_costs=0, score_lines=0,
+                   wall_search=T_SR, cov_update=0, pair_gather=T_SR,
+                   syrk_gram=0)
     check(launches9 == expect9,
           f"square-root path launches {launches9}, expected {expect9}")
     n_sync = [len(x) for x in syncs9]
@@ -739,8 +838,15 @@ def main():
         f"buffer columns 0 after it; ordinary tick median "
         f"{statistics.median(ordinary):.3f} ms, recompression tick "
         f"{tick9[rec]:.3f} ms (CUDA events)")
-    log("phase 7b profile: "
-        + profile_ticks(torch, sess9, carry9, traj, T_SR, T_PROF)[0])
+    prof9, ops9 = profile_ticks(torch, sess9, carry9, traj, T_SR, T_PROF)
+    log(f"phase 7b profile: {prof9}")
+    check(ops9 is not None and ops9 < OPS_BEFORE_WALL_SEARCH["srekf_fast"],
+          f"square-root path: {ops9} device ops per tick, not fewer than "
+          f"the {OPS_BEFORE_WALL_SEARCH['srekf_fast']} with the rounds as "
+          f"torch ops")
+    log(f"phase 7b device ops per tick: {ops9:.0f} with the wall search as "
+        f"one launch, {OPS_BEFORE_WALL_SEARCH['srekf_fast']} with its "
+        f"rounds as torch ops")
     del carry9, filt9, outs9, sess9
     torch.cuda.empty_cache()
 
@@ -842,6 +948,32 @@ def main():
           B * 2 * 4 + B + NH * 2 * 4 + NH * 4,
           NH * B * 7 + NH * 3,             # 7 per test, 3 per line
           F32_FLOPS, None)
+    # the paths score inside wall_search now; score_lines's launches are
+    # phase 3's (its own check and the plain wall search's f32 runs)
+    kernels["score_lines"].update(on_path=False, side_call_launches=side_sl)
+
+    # wall_search at the paths' settings (the flagship extractor) and at
+    # large_world's, each on its phase-3 scan of seed 0 (B = 1024, NH = 64)
+    ws = {}
+    for setting in ("flagship", "large_world"):
+        argsw, pw = wall_search_case(0, 1024, 64, setting, dev)
+        n_ok = int(K.wall_search(*argsw, pw)[1].sum().item())
+        ws[setting] = dict(
+            ms=cuda_ms(torch, lambda: K.wall_search(*argsw, pw), 200),
+            plain_ms=cuda_ms(torch, lambda: wall_search_ref(*argsw, pw), 20),
+            eager_ms=eager_ms(torch, lambda: K.wall_search(*argsw, pw), 200),
+            plain_eager_ms=eager_ms(
+                torch, lambda: wall_search_ref(*argsw, pw), 20),
+            work=wall_search_work(1024, 64, pw, n_ok), accepted=n_ok)
+    wf = ws["flagship"]
+    entry("wall_search", "wall_search.cu",
+          "ekf_slam_tpu/ops/pallas/kernels.py:689",
+          launches6["wall_search"], err_ws, wf["ms"], wf["plain_ms"],
+          *wf["work"], F32_FLOPS, None)
+    kernels["wall_search"].update(
+        eager_ms=wf["eager_ms"], plain_eager_ms=wf["plain_eager_ms"],
+        large_world={k: v for k, v in ws["large_world"].items()
+                     if k != "work"})
 
     Km = torch.randn((D7, Rm), generator=g, device=dev) * 1e-3
     Vm = torch.randn((Rm, D7), generator=g, device=dev) * 1e-3
@@ -900,6 +1032,16 @@ def main():
             f"{k.get('side_call_launches', 0)} beside it)")
     log(f"phase 8 launch floor: {floor_ms:.6f} ms a launch (a one-element "
         f"add_ replayed 2000 times in one CUDA graph)")
+    for setting, w in ws.items():
+        nbytes, ops = w["work"]
+        bound = max(floor_ms, nbytes / HBM_BYTES_PER_S * 1e3,
+                    ops / F32_FLOPS * 1e3)
+        log(f"phase 8 wall_search {setting} (B=1024, NH=64, T=4, "
+            f"{w['accepted']} walls): {w['ms']:.4f} ms device (CUDA graph), "
+            f"{w['eager_ms']:.4f} ms eager with the host; its plain version "
+            f"(torch ops around 1 + T score_lines launches) "
+            f"{w['plain_ms']:.4f} ms device, {w['plain_eager_ms']:.4f} ms "
+            f"eager; the bound with the launch floor {bound:.6f} ms")
     log(f"phase 8 gate_costs: {kernels['gate_costs']['ms']:.4f} ms as one "
         f"launch from the state, against 0.0390 ms for the strip-taking "
         f"launch with its bearing strip before it (PERF.md §6); the torch "

@@ -1,12 +1,15 @@
 """Inputs and runs shared by the port's on-card checks (``chip_smoke.py``
-and ``tests/test_torch_cuda.py``): the K3 scoring case, the K2 gating
-case and the tolerance of its in-kernel bearing, the K5 pair starts, the
+and ``tests/test_torch_cuda.py``): the K3 scoring case, the wall-search
+case and its comparison with the plain version, the K2 gating case and
+the tolerance of its in-kernel bearing, the K5 pair starts, the
 square-root recompression's QR branch, and one session run on several
 devices with the same inputs.  Each caller keeps its own shapes and
 tolerances."""
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+import dataclasses
+import math
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -16,7 +19,9 @@ from .models.srekf_fast import sr_recompress
 from .ops import gating as G
 from .ops.angles import atan2d, wrap_to_360
 from .ops.blocked_chol import chol_for_state
-from .ops.kernels import syrk_gram
+from .ops.kernels import syrk_gram, wall_search
+from .ops.ransac import perpendicular_foot, seed_trials, wall_search_ref
+from .ops.scan import scan_from_ranges, scan_to_world
 from .session import SlamSession
 from .sim import world as W
 from .state import FilterState
@@ -39,6 +44,317 @@ def score_lines_case(g: torch.Generator, NH: int, B: int, thresh: float
            .abs() / torch.sqrt(l64[:, :1] ** 2 + 1.0))
     valid &= ~((d64 - thresh).abs() < 1e-5).any(dim=0)
     return pts, valid, lines
+
+
+# The wall search's two settings: the flagship pipeline's extractor
+# (bench.py:385-396, the sessions of chip_smoke.py) and
+# examples/large_world_slam.py:76-77's, which switches on the refits, both
+# splits and the RMS gate (its T = 9 cut to 4).
+WALL_SETTINGS = {
+    "flagship": dict(line_consensus=60, bearing_window_deg=15.0,
+                     wall_search_timeout=4),
+    "large_world": dict(line_consensus=36, bearing_window_deg=20.0,
+                        wall_search_timeout=4, sample_points=12,
+                        inlier_dist=0.15, refine_passes=2, refine_frac=0.4,
+                        split_gap=1.2, split_kink_deg=3.0, max_fit_rms=0.04),
+}
+
+
+def _notched_room() -> W.World:
+    """A room whose floor wall has a 1.6 m doorway (a gap split) and whose
+    right wall bends by 3.8° halfway up (a kink split)."""
+    return W.World(segments=torch.tensor(
+        [[-4.0, -3.0, -0.8, -3.0], [0.8, -3.0, 4.0, -3.0],
+         [4.0, -3.0, 4.0, 0.0], [4.0, 0.0, 3.8, 3.0], [3.8, 3.0, -4.0, 3.0],
+         [-4.0, 3.0, -4.0, -3.0]]))
+
+
+def wall_search_case(seed: int, B: int, NH: int, setting: str, device
+                     ) -> Tuple[Tuple[torch.Tensor, ...], RansacParams]:
+    """Inputs of ``kernels.wall_search`` on ``device``, float32: one noisy
+    scan of B beams (1 cm range noise) from a pose drawn from ``seed``, in
+    ``rectangle_room(4, 3)`` for the flagship setting and in a room with a
+    doorway and a bent wall for large_world's, as world points [B,2],
+    validity [B], and the NH trial lines [NH,2] and trial_ok [NH] that
+    ``seed_trials`` fits from draws made from ``seed``; and the setting's
+    RansacParams.  Points within 1e-5 of the inlier band from any trial
+    line are marked invalid: the counts' rsqrtf and the masks' 1/sqrt may
+    round them to either side."""
+    params = RansacParams(ref_compat=False, n_hypotheses=NH,
+                          dtype=torch.float32, **WALL_SETTINGS[setting])
+    g = torch.Generator().manual_seed(seed)
+    world = (W.rectangle_room(4.0, 3.0, device="cpu")
+             if setting == "flagship" else _notched_room())
+    u = torch.rand(3, generator=g, dtype=torch.float64)
+    pose = torch.tensor([2.0 * u[0] - 1.0, 2.0 * u[1] - 1.0,
+                         360.0 * u[2]]).float()
+    beams = torch.arange(B, dtype=torch.float32) * (360.0 / B)
+    ranges = (W.raycast(world, pose, beams, 12.0)
+              + torch.randn(B, generator=g) * 0.01)
+    scan = scan_from_ranges(ranges, beams)
+    pts = scan_to_world(scan, pose).contiguous()
+    draws = (torch.rand((NH, B), generator=g),
+             torch.rand((NH, B), generator=g))
+    trial, trial_ok = seed_trials(pts, scan.valid, params, NH, draws=draws)
+    p64, l64 = pts.double(), trial.double()
+    d64 = ((l64[:, :1] * p64[None, :, 0] - p64[None, :, 1] + l64[:, 1:])
+           .abs() / torch.sqrt(l64[:, :1] ** 2 + 1.0))
+    valid = scan.valid & ~((d64 - params.inlier_dist).abs() < 1e-5).any(0)
+    return tuple(a.to(device) for a in (pts, valid, trial, trial_ok)), params
+
+
+WALL_QUANTITIES = ("foot x", "foot y", "angle", "σθ²", "σc²", "t̄")
+
+
+def wall_search_quantities(result) -> torch.Tensor:
+    """[T, 6] f64 on the CPU: each round's perpendicular foot (m), line
+    angle atan(m) (rad) and fit statistics [σθ², σc², t̄] from a result
+    (lines, ok, avail, stats) of the wall search.  Slopes are compared as
+    angles: y = m·x + b is ill-conditioned near vertical walls."""
+    lines, stats = result[0].double().cpu(), result[3].double().cpu()
+    m, b = lines[:, 0], lines[:, 1]
+    return torch.cat([perpendicular_foot(m, b), torch.atan(m)[:, None],
+                      stats], dim=1)
+
+
+def wall_search_gaps(q: torch.Tensor, q64: torch.Tensor) -> torch.Tensor:
+    """|q − q64| per round and quantity, angles modulo π (atan(m) of a
+    near-vertical line may land at either end of (−π/2, π/2))."""
+    d = q - q64
+    d[:, 2] = d[:, 2] - math.pi * torch.round(d[:, 2] / math.pi)
+    return d.abs()
+
+
+def _ulp32(x: torch.Tensor) -> torch.Tensor:
+    a = x.abs().float()
+    return (torch.nextafter(a, torch.full_like(a, math.inf)) - a).double()
+
+
+# how many times the f32 plain runs' own spread a kernel may reach: the
+# runs are a sample of sum orders, and with 16 of them a further reordered
+# run can land past twice their farthest (PERF.md §6)
+WALL_FACTOR = 4.0
+
+
+def wall_search_tolerance(q32s, q64: torch.Tensor, extent: float
+                          ) -> torch.Tensor:
+    """How far [T, 6] a float32 result's quantities may lie from the f64
+    plain version's ``q64``: WALL_FACTOR times the farthest of the f32
+    plain runs ``q32s`` (the same function, its sums reduced in other
+    orders), plus a floor of 4 f32 ulps of each quantity's scale: the
+    scan's ``extent`` (the largest |coordinate|, m) for the feet and t̄,
+    1 rad for the angle, the value itself for σθ² and σc².  A kernel whose
+    only departure is the order of its f32 sums lies inside; a kernel that
+    fits another mask does not."""
+    worst = torch.stack([wall_search_gaps(q, q64) for q in q32s]).amax(0)
+    scale = torch.tensor([extent, extent, 1.0, 0.0, 0.0, extent],
+                         dtype=torch.float64)
+    scale = torch.maximum(scale, q64.abs())
+    scale[:, 3:5] = q64[:, 3:5].abs()
+    return WALL_FACTOR * worst + 4.0 * _ulp32(scale)
+
+
+def _plain_run(args, params, perm=None):
+    """wall_search_ref with its per-round counts and trace, the points in
+    the order ``perm`` (their sums then run in another order), everything
+    returned on the CPU in the points' original order."""
+    pts, valid, trial, trial_ok = args
+    if perm is not None:
+        pts, valid = pts[perm], valid[perm]
+    T, NH = params.wall_search_timeout, trial.shape[0]
+    counts = torch.zeros((T + 1, NH), dtype=torch.int32, device=pts.device)
+    pools = torch.zeros((T, pts.shape[0]), dtype=torch.bool,
+                        device=pts.device)
+    trace = []
+    res = wall_search_ref(pts, valid, trial, trial_ok, params,
+                          counts_out=counts, pools_out=pools, trace=trace)
+
+    def back(x):
+        x = torch.as_tensor(x).cpu()
+        if perm is None or x.dim() == 0:
+            return x
+        out = torch.empty_like(x)
+        out[..., perm] = x
+        return out
+
+    res = tuple(r.cpu() for r in res[:2]) + (back(res[2]), res[3].cpu())
+    trace = [[(name, back(v), back(c), None if rel is None else back(rel))
+              for name, v, c, rel in rec] for rec in trace]
+    return dict(res=res, counts=counts.cpu(), pools=back(pools), trace=trace)
+
+
+def _first_split(a, b) -> int:
+    """The first round whose decisions (ok, the pool and the counts it
+    leaves) differ between two runs; −1 if their initial counts differ, T
+    if none do."""
+    if not torch.equal(a["counts"][0], b["counts"][0]):
+        return -1
+    T = a["res"][1].shape[0]
+    for r in range(T):
+        if (a["res"][1][r] != b["res"][1][r]
+                or not torch.equal(a["pools"][r], b["pools"][r])
+                or not torch.equal(a["counts"][r + 1], b["counts"][r + 1])):
+            return r
+    return T
+
+
+# what each decision the plain version notes (ransac._note) can change:
+# the round's inlier mask, only its line, or only its ok
+WALL_DECISIONS = {"trial distance": "mask", "largest gap": "mask",
+                  "chord at the gap": "mask", "chord at the median": "mask",
+                  "kink": "mask", "slope gap": "mask",
+                  "chord at the kink": "mask", "refine distance": "line",
+                  "fit rms": "ok", "refit denominator": "ok"}
+
+
+def _near_cuts(plain, others, r):
+    """Decisions of ``plain``'s round r that lie within their f32 rounding
+    band: |value − cut| ≤ WALL_FACTOR times the largest change of that
+    margin over ``others`` (the same round of the f64 and the reordered f32
+    runs) plus 4 f32 ulps.  Returns (name, point or None, margin, band)
+    tuples."""
+    out = []
+    for k, (name, v, c, rel) in enumerate(plain["trace"][r]):
+        margin = v.double() - c.double()
+        moved = torch.zeros_like(margin)
+        for o in others:
+            _, vo, co, _ = o["trace"][r][k]
+            moved = torch.maximum(moved, (vo.double() - co.double()
+                                          - margin).abs())
+        scale = torch.maximum(v.double().abs(), c.double().abs())
+        band = WALL_FACTOR * moved + 4.0 * _ulp32(scale)
+        near = margin.abs() <= band
+        if margin.dim() == 0:
+            if bool(near):
+                out.append((name, None, margin.item(), band.item()))
+            continue
+        if rel is not None:
+            near &= rel
+        for i in torch.nonzero(near).flatten().tolist():
+            out.append((name, i, margin[i].item(), band[i].item()))
+    return out
+
+
+def wall_search_compare(args, params: RansacParams, strict: bool,
+                        kernel: Optional[Callable] = None, orders: int = 16,
+                        seed: int = 0) -> Dict[str, object]:
+    """The wall-search kernel (``kernel(*args, params, counts_out=,
+    pools_out=)``, default ``kernels.wall_search``) against its plain
+    version on the same device (f32), the plain version in f64 on the CPU,
+    and ``orders`` f32 plain runs on the CPU with the points permuted.
+
+    * Decisions: the initial counts, and each round's ok and the pool and
+      counts it leaves, must equal the plain version's bit for bit.  With
+      ``strict`` (the splits off: the masks come from the trial lines,
+      which are inputs) that holds for every round, and no decision of the
+      plain run may lie within its f32 rounding band (``_near_cuts``).
+      Otherwise the first round that differs must hold a decision within
+      that band of a kind that can make the difference (WALL_DECISIONS);
+      the rounds after it are not compared, and the decisions are listed
+      in ``notes``.
+    * Numbers: in every round both keep in step (the f64 run too) and the
+      plain run accepts, the feet, angle and statistics lie within
+      ``wall_search_tolerance`` of the f64 run's.
+
+    Returns dict(failures, notes, compared rounds, worst gap/tolerance
+    ratio, max_abs_err: the largest gap between the kernel's and the f32
+    plain version's feet (m) in the compared rounds)."""
+    pts, valid, trial, trial_ok = args
+    T, NH, B = params.wall_search_timeout, trial.shape[0], pts.shape[0]
+    counts_k = torch.zeros((T + 1, NH), dtype=torch.int32, device=pts.device)
+    pools_k = torch.zeros((T, B), dtype=torch.bool, device=pts.device)
+    res_k = (kernel or wall_search)(pts, valid, trial, trial_ok, params,
+                                    counts_out=counts_k, pools_out=pools_k)
+    kern = dict(res=tuple(r.cpu() for r in res_k), counts=counts_k.cpu(),
+                pools=pools_k.cpu())
+    plain = _plain_run(args, params)
+    cpu = tuple(a.cpu() for a in args)
+    f64 = _plain_run((cpu[0].double(), cpu[1], cpu[2].double(), cpu[3]),
+                     dataclasses.replace(params, dtype=torch.float64))
+    g = torch.Generator().manual_seed(seed)
+    runs = [_plain_run(cpu, params, torch.randperm(B, generator=g))
+            for _ in range(orders)]
+    q = {name: wall_search_quantities(x["res"])
+         for name, x in (("k", kern), ("p", plain), ("64", f64))}
+    extent = cpu[0][cpu[1]].abs().max().item() if bool(cpu[1].any()) else 1.0
+    split64 = _first_split(plain, f64)
+    splits = [_first_split(plain, x) for x in runs]
+    failures, notes, compared, ratio, err = [], [], [], 0.0, 0.0
+
+    split_k = _first_split(plain, kern)
+    why, kinds = None, ()
+    if 0 <= split_k < T:
+        okp = bool(plain["res"][1][split_k])
+        okk = bool(kern["res"][1][split_k])
+        if okp != okk:
+            why, kinds = "ok differs", ("mask", "ok")
+        elif okp:       # the pool each leaves differs: a mask decision
+            why, kinds = "the pool or the counts it leaves differ", ("mask",)
+        else:           # neither accepts, so neither may touch the pool
+            why = ("the pool or the counts differ in a round that accepts "
+                   "no wall")
+    for r in range(min(split_k, split64)):
+        if not plain["res"][1][r]:
+            continue
+        tol = wall_search_tolerance(
+            [q["p"]] + [wall_search_quantities(x["res"])
+                        for x, s in zip(runs, splits) if s > r], q["64"],
+            extent)[r]
+        gap = wall_search_gaps(q["k"], q["64"])[r]
+        if (gap > tol).any():
+            split_k = r
+            bad = [f"{n} {gap[i].item():.3e} > {tol[i].item():.3e}"
+                   for i, n in enumerate(WALL_QUANTITIES) if gap[i] > tol[i]]
+            why = f"outside the tolerance: {', '.join(bad)}"
+            kinds = ("mask", "line", "ok")
+            break
+        compared.append(r)
+        ratio = max(ratio, (gap / tol).max().item())
+        err = max(err, (q["k"][r, :2] - q["p"][r, :2]).abs().max().item())
+    if split64 < T:
+        notes.append(f"the f64 plain run decides otherwise from round "
+                     f"{split64}: its rounds are not held to the tolerance")
+
+    others = [f64] + runs
+
+    def near(rounds, kinds):
+        return [(r,) + x for r in rounds for x in _near_cuts(plain, others, r)
+                if WALL_DECISIONS[x[0]] in kinds]
+
+    if strict:
+        close = near(range(T), ("mask", "line", "ok"))
+        if close:
+            failures.append(f"decisions within the f32 rounding band: "
+                            f"{close[:5]}")
+    if split_k == -1:
+        failures.append("the initial counts differ")
+    elif split_k < T:
+        close = near((split_k,), kinds)
+        msg = f"round {split_k}: {why}"
+        # each point whose pool differs needs its own decision at a cut,
+        # unless a decision over the whole wall (a split) is at its cut
+        diff = torch.nonzero(kern["pools"][split_k]
+                             != plain["pools"][split_k]).flatten().tolist()
+        whole = [x for x in close if x[2] is None]
+        mine = {x[2]: x for x in close if x[2] is not None}
+        far = [] if whole else [i for i in diff if i not in mine]
+        if strict or not close or far:
+            failures.append(f"{msg}; decisions of the plain run within the "
+                            f"f32 rounding band that could change it: "
+                            f"{close[:5] or 'none'}; points of the pool "
+                            f"that differ off every cut's band: {far[:8]}")
+        else:
+            shown = [mine.get(i, whole[0] if whole else None)
+                     for i in diff][:8] or close[:5]
+            notes.append(f"{msg} at {len(diff)} points, each at a decision "
+                         f"within the f32 rounding band (round, name, point, "
+                         f"value − cut, band): {shown}; later rounds not "
+                         f"compared")
+    elif not torch.equal(kern["res"][2], plain["res"][2]):
+        failures.append("the returned pool is not the last round's")
+    return dict(failures=failures, notes=notes, compared=compared,
+                ratio=ratio, max_abs_err=err,
+                accepted=int(plain["res"][1].sum()))
 
 
 def gate_case(g: torch.Generator, M: int, K: int, D: int = None,

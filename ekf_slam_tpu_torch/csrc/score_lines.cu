@@ -14,13 +14,17 @@
 // or arithmetic, so a single launch's latency (a few µs) is what bounds
 // it.  The design therefore keeps it to one small launch.
 //
-// Numerics: rsqrtf as the TPU kernel uses lax.rsqrt (kernels.py:682);
-// the products and sums are rounded one by one (__fmul_rn/__fadd_rn, no
-// FMA contraction) like the plain PyTorch version, which divides by sqrt
-// instead.  The two can disagree only for a point within an ulp of thresh.
+// Numerics: the test is score_lines.cuh's, which the batched wall search
+// (wall_search.cu) shares: rsqrtf as the TPU kernel uses lax.rsqrt
+// (kernels.py:682); the products and sums are rounded one by one
+// (__fmul_rn/__fadd_rn, no FMA contraction) like the plain PyTorch
+// version, which divides by sqrt instead.  The two can disagree only for a
+// point within an ulp of thresh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "score_lines.cuh"
 
 namespace {
 
@@ -36,13 +40,12 @@ score_lines_kernel(const float* __restrict__ points,
   const int h = blockIdx.x * LINES_PER_BLOCK + threadIdx.x / 32;
   if (h >= NH) return;                        // whole warp leaves together
   const float m = lines[2 * h], b = lines[2 * h + 1];
-  const float inv = rsqrtf(__fadd_rn(__fmul_rn(m, m), 1.0f));
+  const float inv = score_inv_norm(m);
   int cnt = 0;
   for (int i = lane; i < B; i += 32) {
-    const float x = points[2 * i], y = points[2 * i + 1];
-    const float d =
-        __fmul_rn(fabsf(__fadd_rn(__fsub_rn(__fmul_rn(m, x), y), b)), inv);
-    cnt += (valid[i] != 0) && (d < thresh);
+    cnt += (valid[i] != 0) &&
+           score_is_inlier(m, b, inv, points[2 * i], points[2 * i + 1],
+                           thresh);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) cnt += __shfl_down_sync(0xffffffffu, cnt, o);

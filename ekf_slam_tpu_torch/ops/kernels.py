@@ -12,6 +12,11 @@ launch counters and the nvcc + ctypes loader.
   on the device (csrc/pair_gather.cu; replaces ``pair_gather_pallas``).
 * ``syrk_gram`` — G = S·Sᵀ from the lower tile pairs, each mirrored from
   the same registers (csrc/syrk_gram.cu; replaces ``syrk_gram_pallas``).
+* ``wall_search`` — the batched RANSAC wall search: the initial scoring
+  and every greedy round of ``ransac.find_walls_batched`` in one launch of
+  one thread block (csrc/wall_search.cu; replaces the 1 + T
+  ``score_lines_pallas`` launches of a scan and the XLA work between them).
+  It shares its scoring test with ``score_lines`` (csrc/score_lines.cuh).
 
 The fused gate kernel (csrc/gate_costs.cu, ``gating.gate_costs_pallas``
 in the JAX package) has its wrapper, ``gate_costs_state``, in
@@ -25,7 +30,8 @@ the kernel launches.
 The kernels are compiled on first use, one ``nvcc`` per source started
 together, for ``sm_90a`` into ``build/torch_kernels/`` at the repository
 root (file names carry a hash of the source, so an edited source
-rebuilds, as do changed flags), and loaded with ctypes: a plain C interface, no PyTorch
+rebuilds, as do an edited header of ``csrc/`` and changed flags), and
+loaded with ctypes: a plain C interface, no PyTorch
 headers.  Each launch goes on the tensor's current CUDA stream; the C
 function returns ``cudaGetLastError()`` and the wrapper raises if that is
 not 0.
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -49,12 +56,15 @@ _SOURCES = {"syrk_downdate": "syrk_downdate.cu",
             "gate_costs": "gate_costs.cu",
             "cov_update": "cov_update.cu",
             "pair_gather": "pair_gather.cu",
-            "syrk_gram": "syrk_gram.cu"}
+            "syrk_gram": "syrk_gram.cu",
+            "wall_search": "wall_search.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# gate_costs rounds every product and sum on its own, as the plain
-# version's separate PyTorch kernels do, so the two agree to the bit
-_EXTRA_FLAGS = {"gate_costs": ["-fmad=false"]}
+# gate_costs and wall_search round every product and sum on their own, as
+# the plain versions' separate PyTorch kernels do, so that they agree to
+# the bit where their order of operations is the same
+_EXTRA_FLAGS = {"gate_costs": ["-fmad=false"],
+                "wall_search": ["-fmad=false"]}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -87,7 +97,30 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         "pair_gather": [vp, vp, ci, ci, ci, ci, ci, vp, vp],
         # (S, G, D, R, dtype code, stream)
         "syrk_gram": [vp, vp, ci, ci, ci, vp],
+        # (points, valid, trial, trial_ok, B, NH, T, inlier_dist,
+        #  consensus, refine_passes, refine_frac, use_gap, split_gap,
+        #  use_kink, kink_rad, use_rms, max_rms, lines, ok, avail, stats,
+        #  counts, pools, stream)
+        "wall_search": [vp] * 4 + [ci] * 3 + [ctypes.c_double, ci, ci,
+                                                ctypes.c_double]
+                       + [ci, ctypes.c_float] * 3 + [vp] * 7,
     }[name]
+    if name == "wall_search":
+        for fn in (lib.wall_search_smem, lib.wall_search_smem_limit):
+            fn.restype = ctypes.c_longlong
+        lib.wall_search_smem.argtypes = [ci, ci]
+        lib.wall_search_smem_limit.argtypes = [ci]
+
+
+def _digest(name: str, flags) -> str:
+    """Hash of a kernel's source, every header of ``csrc/`` (a source may
+    include any of them) and its nvcc flags: the build's file name, so an
+    edit to any of them rebuilds."""
+    h = hashlib.sha256((_CSRC / _SOURCES[name]).read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:12]
 
 
 def build(names: Optional[Iterable[str]] = None) -> None:
@@ -97,12 +130,9 @@ def build(names: Optional[Iterable[str]] = None) -> None:
     todo = {}
     for name in names or _SOURCES:
         if name not in _libs:
-            src = _CSRC / _SOURCES[name]
             flags = _NVCC_FLAGS + _EXTRA_FLAGS.get(name, [])
-            digest = hashlib.sha256(src.read_bytes() + " ".join(
-                flags).encode()).hexdigest()[:12]
-            todo[name] = (src, flags,
-                          BUILD_DIR / f"lib{name}-{digest}.so")
+            todo[name] = (_CSRC / _SOURCES[name], flags,
+                          BUILD_DIR / f"lib{name}-{_digest(name, flags)}.so")
     procs = {}
     for name, (src, flags, so) in todo.items():
         if not so.exists():
@@ -250,6 +280,109 @@ def score_lines(points: torch.Tensor, valid: torch.Tensor,
 
 
 score_lines.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3, redesigned · the batched wall search in one launch
+# ---------------------------------------------------------------------------
+
+_smem_limit: Dict[int, int] = {}
+
+
+def wall_search(points: torch.Tensor, valid: torch.Tensor,
+                trial: torch.Tensor, trial_ok: torch.Tensor, params,
+                counts_out: Optional[torch.Tensor] = None,
+                pools_out: Optional[torch.Tensor] = None):
+    """The greedy rounds of ``ransac.find_walls_batched`` from its NH
+    seeded trial lines: (lines [T,2] as (m, b), ok [T], the remaining
+    pool avail [B], fit stats [T,3]), T = ``params.wall_search_timeout``
+    (``params`` a RansacParams).  One kernel launch on CUDA tensors, the
+    plain version ``ransac.wall_search_ref`` on CPU tensors.
+
+    On CUDA: float32 points [B,2] and trial [NH,2], bool valid [B] and
+    trial_ok [NH], all contiguous; any NH ≥ 1 and T ≥ 1, and B as far as
+    the block's shared memory holds (12·B + 4·P2 + 13·NH bytes, P2 the
+    next power of two ≥ B: B ≤ 13,708 at NH = 64 on an H100).
+    Records for checks, where given: ``counts_out`` (int32 [T+1, NH]) gets
+    in row r the counts that round r picks its winner from, in row T those
+    after the last round; ``pools_out`` (bool [T, B]) the pool each round
+    leaves."""
+    from .ransac import wall_search_ref     # ransac imports this module
+    T = params.wall_search_timeout
+    _require(points.dim() == 2 and points.shape[1] == 2,
+             f"points must be [B, 2], got {tuple(points.shape)}")
+    B = points.shape[0]
+    _require(valid.shape == (B,) and valid.dtype == torch.bool,
+             "valid must be bool [B]")
+    _require(trial.dim() == 2 and trial.shape[1] == 2,
+             f"trial must be [NH, 2], got {tuple(trial.shape)}")
+    NH = trial.shape[0]
+    _require(trial_ok.shape == (NH,) and trial_ok.dtype == torch.bool,
+             "trial_ok must be bool [NH]")
+    _require(B >= 1 and NH >= 1 and T >= 1,
+             f"wall_search needs B, NH and T ≥ 1, got {B}, {NH}, {T}")
+    _require(points.device == valid.device == trial.device
+             == trial_ok.device,
+             "points, valid, trial and trial_ok must be on one device")
+    if counts_out is not None:
+        _require(counts_out.shape == (T + 1, NH)
+                 and counts_out.dtype == torch.int32
+                 and counts_out.is_contiguous()
+                 and counts_out.device == points.device,
+                 f"counts_out must be a contiguous int32 [{T + 1}, {NH}] "
+                 "on the points' device")
+    if pools_out is not None:
+        _require(pools_out.shape == (T, B) and pools_out.dtype == torch.bool
+                 and pools_out.is_contiguous()
+                 and pools_out.device == points.device,
+                 f"pools_out must be a contiguous bool [{T}, {B}] on the "
+                 "points' device")
+    if points.device.type == "cpu":
+        return wall_search_ref(points, valid, trial, trial_ok, params,
+                               counts_out=counts_out, pools_out=pools_out)
+    _require(points.device.type == "cuda",
+             f"wall_search runs on CUDA or CPU tensors, not {points.device}")
+    _require(points.dtype == torch.float32 and trial.dtype == torch.float32,
+             f"the wall_search kernel takes float32 points and trial lines, "
+             f"not {points.dtype}/{trial.dtype}")
+    _require(points.is_contiguous() and valid.is_contiguous()
+             and trial.is_contiguous() and trial_ok.is_contiguous(),
+             "wall_search needs contiguous points, valid, trial and "
+             "trial_ok")
+    lib = _lib("wall_search")
+    dev = points.device.index if points.device.index is not None \
+        else torch.cuda.current_device()
+    if dev not in _smem_limit:
+        _smem_limit[dev] = lib.wall_search_smem_limit(dev)
+    smem = lib.wall_search_smem(B, NH)
+    _require(smem <= _smem_limit[dev],
+             f"wall_search at B={B}, NH={NH} needs {smem} bytes of shared "
+             f"memory, more than the {_smem_limit[dev]} a block has")
+    f32 = dict(dtype=torch.float32, device=points.device)
+    lines = torch.empty((T, 2), **f32)
+    ok = torch.empty((T,), dtype=torch.bool, device=points.device)
+    avail = torch.empty((B,), dtype=torch.bool, device=points.device)
+    stats = torch.empty((T, 3), **f32)
+    with torch.cuda.device(points.device):
+        err = lib.wall_search(
+            points.data_ptr(), valid.data_ptr(), trial.data_ptr(),
+            trial_ok.data_ptr(), B, NH, T, float(params.inlier_dist),
+            int(params.line_consensus), int(params.refine_passes),
+            float(params.refine_frac), int(params.split_gap > 0),
+            float(params.split_gap), int(params.split_kink_deg > 0),
+            math.radians(params.split_kink_deg),
+            int(params.max_fit_rms > 0), float(params.max_fit_rms),
+            lines.data_ptr(), ok.data_ptr(), avail.data_ptr(),
+            stats.data_ptr(),
+            0 if counts_out is None else counts_out.data_ptr(),
+            0 if pools_out is None else pools_out.data_ptr(),
+            _stream(points.device))
+    _launch_check("wall_search", err)
+    wall_search.launches += 1
+    return lines, ok, avail, stats
+
+
+wall_search.launches = 0
 
 
 # ---------------------------------------------------------------------------

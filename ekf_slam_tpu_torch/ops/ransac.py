@@ -1,8 +1,10 @@
 """RANSAC wall/landmark extraction, fixed-shape (counterpart of
 ekf_slam_tpu/ops/ransac.py; RANSAC.m:14-373).
 
-The batched-hypothesis wall search scores NH trial lines per round with
-the hand-written CUDA kernel (ops/kernels.score_lines).  The candidate
+The batched-hypothesis wall search seeds NH trial lines with torch ops,
+then runs the initial scoring and every greedy round in one launch of the
+hand-written CUDA kernel ``ops/kernels.wall_search`` (its plain version is
+``wall_search_ref`` below).  The candidate
 table keeps the reference's semantics and quirks (two-quadrant bearing
 window, increment-all-matches, promotion after promote_count sightings,
 first-candidate seeding of an empty table, decay only on ticks with a
@@ -29,7 +31,7 @@ import torch
 
 from ..config import RansacParams, resolve_device
 from .angles import atan2d, atand, wrap_to_360
-from .kernels import score_lines
+from .kernels import score_lines, wall_search
 from .observations import ObsBatch
 from .scan import Scan, scan_to_world
 
@@ -72,11 +74,9 @@ def _sel(mask: torch.Tensor, a, b):
 # Line fitting (RANSAC.m:184-215)
 # ---------------------------------------------------------------------------
 
-def fit_line(points: torch.Tensor, w: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Weighted least-squares y = m·x + b over masked points; ``w`` may
-    carry leading batch dims ([..., B]).  Returns (m, b, ok); ok is False
-    for degenerate (vertical/empty) sets."""
+def _fit_sums(points: torch.Tensor, w: torch.Tensor):
+    """fit_line's sums: (n, max(n, 1), Σx, Σy, Σxy and the denominator
+    Σx² − (Σx)²/max(n, 1))."""
     w = w.to(points.dtype)
     px, py = points[:, 0], points[:, 1]
     n = w.sum(-1)
@@ -85,7 +85,15 @@ def fit_line(points: torch.Tensor, w: torch.Tensor
     sy = (w * py).sum(-1)
     sxx = (w * px * px).sum(-1)
     sxy = (w * px * py).sum(-1)
-    denom = sxx - sx * sx / n_safe
+    return n, n_safe, sx, sy, sxy, sxx - sx * sx / n_safe
+
+
+def fit_line(points: torch.Tensor, w: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Weighted least-squares y = m·x + b over masked points; ``w`` may
+    carry leading batch dims ([..., B]).  Returns (m, b, ok); ok is False
+    for degenerate (vertical/empty) sets."""
+    n, n_safe, sx, sy, sxy, denom = _fit_sums(points, w)
     ok = (n >= 2) & (torch.abs(denom) > 1e-12)
     denom_safe = torch.where(ok, denom, 1.0)
     m = (sxy - sx * sy / n_safe) / denom_safe
@@ -111,8 +119,17 @@ def _chord(points, m):
     return (points[:, 0] + m * points[:, 1]) / torch.sqrt(1.0 + m * m)
 
 
+def _note(trace, name, value, cut, relevant=None):
+    """Record one decision of a round where ``trace`` is a list: a value
+    (per point [B], with the points it applies to, or a scalar) compared
+    with ``cut``.  The checks use it to tell a rounding flip at a cut from
+    a fault (checks.wall_search_compare)."""
+    if trace is not None:
+        trace.append((name, value, cut, relevant))
+
+
 def split_on_gap(points: torch.Tensor, inl: torch.Tensor, m, b,
-                 params: RansacParams):
+                 params: RansacParams, trace=None):
     """Split a fitted wall at the largest internal gap of its inlier chord
     (RansacParams.split_gap; two passes).  No-op when split_gap == 0."""
     if params.split_gap <= 0:
@@ -127,6 +144,8 @@ def split_on_gap(points: torch.Tensor, inl: torch.Tensor, m, b,
         gi = torch.argmax(gaps)
         has_gap = _take(gaps, gi) > params.split_gap
         cut = 0.5 * (_take(ts, gi) + _take(ts, gi + 1))
+        _note(trace, "largest gap", _take(gaps, gi), params.split_gap)
+        _note(trace, "chord at the gap", t, cut, inl & has_gap)
         left = inl & (t < cut)
         keep = torch.where(left.sum() * 2 >= n, left, inl & (t >= cut))
         inl = torch.where(has_gap, keep, inl)
@@ -137,7 +156,7 @@ def split_on_gap(points: torch.Tensor, inl: torch.Tensor, m, b,
 
 
 def split_on_kink(points: torch.Tensor, inl: torch.Tensor, m, b,
-                  params: RansacParams):
+                  params: RansacParams, trace=None):
     """Split a fitted wall at the kink between two near-collinear walls
     (RansacParams.split_kink_deg; two passes).  No-op when 0."""
     if params.split_kink_deg <= 0:
@@ -159,6 +178,10 @@ def split_on_kink(points: torch.Tensor, inl: torch.Tensor, m, b,
         xi = (br - bl) / dm
         yi = ml * xi + bl
         ti = (xi + m * yi) / torch.sqrt(1.0 + m * m)
+        _note(trace, "chord at the median", t, med, inl & (t != med))
+        _note(trace, "kink", kink, thresh)
+        _note(trace, "slope gap", torch.abs(ml - mr), 1e-9)
+        _note(trace, "chord at the kink", t, ti, inl & split)
         cut_l = inl & (t < ti)
         cut_r = inl & (t >= ti)
         keep = torch.where(cut_l.sum() >= cut_r.sum(), cut_l, cut_r)
@@ -178,13 +201,15 @@ def fit_rms(points: torch.Tensor, inl: torch.Tensor, m, b) -> torch.Tensor:
 
 
 def refine_fit(points: torch.Tensor, avail: torch.Tensor, m, b, ok,
-               params: RansacParams):
+               params: RansacParams, trace=None):
     """``params.refine_passes`` tightened refits (band × refine_frac per
     pass); a pass that would degenerate keeps the previous fit."""
     thr = params.inlier_dist
     for _ in range(params.refine_passes):
         thr = thr * params.refine_frac
-        sel = avail & (point_line_dist(points, m, b) < thr)
+        d = point_line_dist(points, m, b)
+        _note(trace, "refine distance", d, thr, avail)
+        sel = avail & (d < thr)
         m2, b2, ok2 = fit_line(points, sel)
         m = torch.where(ok2, m2, m)
         b = torch.where(ok2, b2, b)
@@ -192,13 +217,15 @@ def refine_fit(points: torch.Tensor, avail: torch.Tensor, m, b, ok,
 
 
 def _finalize_wall(points, avail, inl, m, b, refit_ok,
-                   params: RansacParams):
+                   params: RansacParams, trace=None):
     """Accepted-wall post-processing: splits, refits, the RMS gate and the
     fit statistics [σθ², σc², t̄] that noise_model='fit' propagates."""
-    m, b, inl = split_on_gap(points, inl, m, b, params)
-    m, b, inl = split_on_kink(points, inl, m, b, params)
-    m, b, _ = refine_fit(points, avail, m, b, refit_ok, params)
+    m, b, inl = split_on_gap(points, inl, m, b, params, trace)
+    m, b, inl = split_on_kink(points, inl, m, b, params, trace)
+    m, b, _ = refine_fit(points, avail, m, b, refit_ok, params, trace)
     rms = fit_rms(points, inl, m, b)
+    if params.max_fit_rms > 0:
+        _note(trace, "fit rms", rms, params.max_fit_rms)
     ok_q = (rms < params.max_fit_rms if params.max_fit_rms > 0
             else torch.ones((), dtype=torch.bool, device=points.device))
     w = inl.to(points.dtype)
@@ -222,18 +249,16 @@ def _bearing(points: torch.Tensor, params: RansacParams) -> torch.Tensor:
     return atan2d(y, x)
 
 
-def find_walls_batched(points: torch.Tensor, valid: torch.Tensor,
-                       params: RansacParams, n_hypotheses: int = 64,
-                       draws: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                       = None,
-                       generator: Optional[torch.Generator] = None):
-    """NH seed lines fitted from their bearing windows, scored in one
-    kernel launch, then up to T = wall_search_timeout greedy winners with
-    disjoint inlier sets (each pick re-scores the hypotheses against the
-    reduced pool: 1 + T score_lines launches per call).
-
-    Returns (lines [T,2] as (m, b), ok [T], remaining valid mask,
-    fit stats [T,3])."""
+def seed_trials(points: torch.Tensor, valid: torch.Tensor,
+                params: RansacParams, n_hypotheses: int = 64,
+                draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The NH trial lines [NH,2] as (m, b) of the batched wall search, each
+    fitted to ``sample_points`` draws from the bearing window around a
+    drawn seed point, and whether each may score (its window holds more
+    than ``sample_points`` points and its fit is not degenerate): JAX
+    ransac.py:307-334, step by step."""
     B = points.shape[0]
     NH = n_hypotheses
     dev = points.device
@@ -263,32 +288,82 @@ def find_walls_batched(points: torch.Tensor, valid: torch.Tensor,
     sel = sel.scatter(1, top_idx, True) & in_win
 
     m0, b0, fit_ok = fit_line(points, sel)
-    trial = torch.stack([m0, b0], dim=-1).contiguous()           # [NH,2]
-    counts = score_lines(points, valid, trial, params.inlier_dist)
-    counts = torch.where(enough & fit_ok, counts, 0)
+    return torch.stack([m0, b0], dim=-1).contiguous(), enough & fit_ok
 
+
+def wall_search_ref(points: torch.Tensor, valid: torch.Tensor,
+                    trial: torch.Tensor, trial_ok: torch.Tensor,
+                    params: RansacParams,
+                    counts_out: Optional[torch.Tensor] = None,
+                    pools_out: Optional[torch.Tensor] = None,
+                    trace: Optional[list] = None):
+    """Plain version of the wall-search kernel (csrc/wall_search.cu): the
+    trial lines scored against the valid points, then up to T =
+    wall_search_timeout greedy winners with disjoint inlier sets, each pick
+    re-scoring the lines against the reduced pool (JAX ransac.py:335-356;
+    the scoring through ops/kernels.score_lines, 1 + T calls).
+
+    Returns (lines [T,2] as (m, b), ok [T], remaining pool [B], fit stats
+    [T,3]).  Records for checks, where given: ``counts_out`` (int32
+    [T+1, NH]) gets the counts each round picks from and, in row T, those
+    after the last round; ``pools_out`` (bool [T, B]) the pool each round
+    leaves; ``trace`` (a list) one list per round of the decisions it made
+    (``_note``)."""
+    counts = torch.where(trial_ok, score_lines(points, valid, trial,
+                                               params.inlier_dist), 0)
     avail, cnts = valid, counts
-    lines, oks, stats_all = [], [], []
+    rows, pools, lines, oks, stats_all = [counts], [], [], [], []
     for _ in range(params.wall_search_timeout):
+        rec = None if trace is None else []
         best = torch.argmax(cnts)          # first maximum, as jnp.argmax
         ok = _take(cnts, best) > params.line_consensus
         tb = _take(trial, best)
         d = point_line_dist(points, tb[0], tb[1])
+        _note(rec, "trial distance", d, params.inlier_dist, avail)
         inl = avail & (d < params.inlier_dist)
         m1, b1, refit_ok = fit_line(points, inl)
+        if rec is not None:
+            _note(rec, "refit denominator", _fit_sums(points, inl)[-1].abs(),
+                  1e-12)
         ok = ok & refit_ok
         m1, b1, inl, ok_q, stats = _finalize_wall(points, avail, inl,
-                                                  m1, b1, refit_ok, params)
+                                                  m1, b1, refit_ok, params,
+                                                  rec)
         ok = ok & ok_q
         avail = torch.where(ok, avail & ~inl, avail)
         cnts = torch.where(ok, score_lines(points, avail, trial,
                                            params.inlier_dist), cnts)
         cnts = cnts.index_fill(0, best.reshape(1), 0)
+        rows.append(cnts)
+        pools.append(avail)
         lines.append(torch.stack([m1, b1]))
         oks.append(ok)
         stats_all.append(stats)
+        if trace is not None:
+            trace.append(rec)
+    if counts_out is not None:
+        counts_out.copy_(torch.stack(rows))
+    if pools_out is not None:
+        pools_out.copy_(torch.stack(pools))
     return (torch.stack(lines), torch.stack(oks), avail,
             torch.stack(stats_all))
+
+
+def find_walls_batched(points: torch.Tensor, valid: torch.Tensor,
+                       params: RansacParams, n_hypotheses: int = 64,
+                       draws: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                       = None,
+                       generator: Optional[torch.Generator] = None):
+    """NH seed lines fitted from their bearing windows (``seed_trials``),
+    then the scoring and up to T = wall_search_timeout greedy winners with
+    disjoint inlier sets in one ``wall_search`` launch on the card (the
+    plain version on the CPU).
+
+    Returns (lines [T,2] as (m, b), ok [T], remaining valid mask,
+    fit stats [T,3])."""
+    trial, trial_ok = seed_trials(points, valid, params, n_hypotheses,
+                                  draws=draws, generator=generator)
+    return wall_search(points, valid, trial, trial_ok, params)
 
 
 def foot_covariance(lines: torch.Tensor, stats: torch.Tensor

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card (K1 syrk_downdate, K2 gate_costs,
-K3 score_lines, K4 cov_update, K5 pair_gather, K6 syrk_gram), held
-against their plain versions; the blocked Cholesky's NaN on failure
-without a host sync; the square-root recompression's QR branch; and the
+K3 score_lines and the one-launch wall search, K4 cov_update, K5
+pair_gather, K6 syrk_gram), held against their plain versions; the
+blocked Cholesky's NaN on failure without a host sync; the square-root recompression's QR branch; and the
 tuned, kernel-path and square-root sessions on the card against the
 CPU.
 
@@ -18,7 +18,8 @@ import torch
 from ekf_slam_tpu_torch.checks import (bearing_gap_ulps, gate_case,
                                        gate_tolerance, pair_starts,
                                        recompress_qr_case, score_lines_case,
-                                       session_on_devices)
+                                       session_on_devices, wall_search_case,
+                                       wall_search_compare)
 from ekf_slam_tpu_torch.ops import gating as G
 from ekf_slam_tpu_torch.ops import kernels as K
 
@@ -338,3 +339,54 @@ def test_srekf_fast_session_on_card_matches_cpu(dev):
     assert torch.equal(outs["cuda"].n_active.cpu(), outs["cpu"].n_active)
     assert int(outs["cpu"].n_active[-1]) > 0
     assert (outs["cuda"].pose.cpu() - outs["cpu"].pose).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize("B,NH", [(1024, 64), (1000, 64), (1024, 7),
+                                  (1000, 7)])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("setting", ["flagship", "large_world"])
+def test_wall_search_kernel_matches_plain(dev, setting, seed, B, NH):
+    """The one-launch wall search against its plain version
+    (checks.wall_search_compare): at the flagship settings the counts of
+    every round, each round's ok and pool bit-equal; at large_world's
+    (refits, splits, RMS gate) a round may part only at a decision within
+    the f32 rounding band of its cut; lines and statistics within
+    checks.wall_search_tolerance of the f64 plain version."""
+    args, params = wall_search_case(seed, B, NH, setting, dev)
+    before = K.wall_search.launches
+    res = wall_search_compare(args, params, setting == "flagship")
+    assert K.wall_search.launches == before + 1
+    assert res["failures"] == [], res
+    assert res["compared"] and res["accepted"] > 0
+
+
+@pytest.mark.parametrize("which", ["float64", "strided", "too_many_points"])
+def test_wall_search_kernel_rejects_what_it_does_not_take(dev, which):
+    """float64, a strided input, and more points than a block's shared
+    memory holds raise; nothing falls back to the plain version."""
+    B = 16384 if which == "too_many_points" else 256
+    (pts, valid, trial, trial_ok), params = wall_search_case(
+        0, B, 64, "flagship", dev)
+    if which == "float64":
+        pts, trial = pts.double(), trial.double()
+    elif which == "strided":
+        pts = torch.stack([pts, pts], 1)[:, 0]
+    before = K.wall_search.launches
+    with pytest.raises(ValueError):
+        K.wall_search(pts, valid, trial, trial_ok, params)
+    assert K.wall_search.launches == before
+
+
+def test_session_launches_one_wall_search_per_tick(dev):
+    """A small session on the card runs the extractor's rounds as one
+    wall_search launch a tick, and the scoring kernel not at all."""
+    from ekf_slam_tpu_torch import EKFParams, RansacParams
+    ep = EKFParams(capacity=64, max_obs=8, ref_compat=False,
+                   update_mode="batched", pht_mode="rows", correction="syrk")
+    rp = RansacParams(line_consensus=30, bearing_window_deg=15.0,
+                      wall_search_timeout=4, table_capacity=64,
+                      promote_count=5, ref_compat=False, n_hypotheses=32)
+    K.wall_search.launches = K.score_lines.launches = 0
+    outs = session_on_devices(ep, rp, 8, 512, ("cuda",))
+    assert (K.wall_search.launches, K.score_lines.launches) == (8, 0)
+    assert int(outs["cuda"].n_active[-1]) > 0

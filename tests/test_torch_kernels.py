@@ -1,10 +1,10 @@
 """The plain versions of the port's CUDA kernels in ops/kernels.py (K1
 syrk_downdate, K3 score_lines, K4 cov_update, K5 pair_gather, K6
-syrk_gram) against
-the JAX package's Pallas kernels run in interpret mode, and the wrappers'
-CPU behaviour and input checks.  The CUDA kernels themselves have no
-interpret mode: chip_smoke.py builds them on the GPU and holds each one
-against these plain versions there."""
+syrk_gram) against the JAX package's Pallas kernels run in interpret
+mode, the wrappers' CPU behaviour and input checks (wall_search, K3's
+one-launch wall search, included), and the build's hash of the sources.
+The CUDA kernels themselves have no interpret mode: chip_smoke.py builds
+them on the GPU and holds each one against these plain versions there."""
 import pathlib
 
 import jax.numpy as jnp
@@ -252,7 +252,7 @@ def test_pair_gather_wrapper_rejects_bad_inputs(bad):
 
 def test_kernel_sources_export_the_bound_symbols():
     """The ctypes binding names one extern "C" entry point per source."""
-    assert len(tk._SOURCES) == 6
+    assert len(tk._SOURCES) == 7
     for name, src in tk._SOURCES.items():
         text = (ROOT / "ekf_slam_tpu_torch" / "csrc" / src).read_text()
         assert f'extern "C" int {name}(' in text
@@ -304,3 +304,80 @@ def test_syrk_gram_wrapper_rejects_bad_inputs(bad):
         S = S.to("meta")
     with pytest.raises(ValueError):
         tk.syrk_gram(S, use_pallas=True)
+
+
+def _wall_args(B=64, NH=5, seed=0):
+    from ekf_slam_tpu_torch.checks import wall_search_case
+    return wall_search_case(seed, B, NH, "flagship", "cpu")
+
+
+def test_wall_search_wrapper_runs_plain_version_on_cpu():
+    """On CPU tensors the wrapper is the plain version, records included,
+    and launches nothing (neither itself nor the scoring kernel)."""
+    from ekf_slam_tpu_torch.ops.ransac import wall_search_ref
+    (pts, valid, trial, trial_ok), params = _wall_args(B=1024, NH=64)
+    T, NH = params.wall_search_timeout, trial.shape[0]
+    before = (tk.wall_search.launches, tk.score_lines.launches)
+    counts = torch.zeros((T + 1, NH), dtype=torch.int32)
+    pools = torch.zeros((T, pts.shape[0]), dtype=torch.bool)
+    got = tk.wall_search(pts, valid, trial, trial_ok, params,
+                         counts_out=counts, pools_out=pools)
+    want = wall_search_ref(pts, valid, trial, trial_ok, params)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[1].any()
+    assert (tk.wall_search.launches, tk.score_lines.launches) == before
+    assert torch.equal(counts[0], torch.where(trial_ok, tk.score_lines_ref(
+        pts, valid, trial, params.inlier_dist), 0))
+    assert torch.equal(pools[-1], got[2])
+
+
+@pytest.mark.parametrize("bad", ["points_shape", "valid_dtype", "trial_shape",
+                                 "trial_ok_shape", "no_lines", "no_rounds",
+                                 "devices", "counts_shape", "pools_dtype"])
+def test_wall_search_wrapper_rejects_bad_inputs(bad):
+    import dataclasses
+    (pts, valid, trial, trial_ok), params = _wall_args()
+    kw = {}
+    if bad == "points_shape":
+        pts = torch.zeros((64, 3))
+    elif bad == "valid_dtype":
+        valid = valid.float()
+    elif bad == "trial_shape":
+        trial = trial.reshape(-1)
+    elif bad == "trial_ok_shape":
+        trial_ok = trial_ok[:-1]
+    elif bad == "no_lines":
+        trial, trial_ok = trial[:0], trial_ok[:0]
+    elif bad == "no_rounds":
+        params = dataclasses.replace(params, wall_search_timeout=0)
+    elif bad == "devices":
+        trial = trial.to("meta")
+    elif bad == "counts_shape":
+        kw["counts_out"] = torch.zeros((params.wall_search_timeout,
+                                        trial.shape[0]), dtype=torch.int32)
+    else:
+        kw["pools_out"] = torch.zeros((params.wall_search_timeout,
+                                       pts.shape[0]))
+    with pytest.raises(ValueError):
+        tk.wall_search(pts, valid, trial, trial_ok, params, **kw)
+
+
+def test_build_digest_covers_headers_and_flags(tmp_path, monkeypatch):
+    """The build's file name hashes the source, every header of csrc/ and
+    the flags: an edit to score_lines.cuh rebuilds both kernels that
+    include it."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(ROOT / "ekf_slam_tpu_torch" / "csrc", csrc)
+    monkeypatch.setattr(tk, "_CSRC", csrc)
+    flags = tk._NVCC_FLAGS + tk._EXTRA_FLAGS["wall_search"]
+    before = {n: tk._digest(n, flags) for n in ("score_lines",
+                                                "wall_search")}
+    assert tk._digest("wall_search", tk._NVCC_FLAGS) != before["wall_search"]
+    header = csrc / "score_lines.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: tk._digest(n, flags) for n in before}
+    assert all(after[n] != before[n] for n in before)
+    for src in ("wall_search.cu", "score_lines.cu"):
+        assert '#include "score_lines.cuh"' in (csrc / src).read_text()

@@ -1,8 +1,11 @@
 """ekf_slam_tpu_torch RANSAC extraction against ekf_slam_tpu at float64:
 the batched-hypothesis wall search fed the JAX package's own threefry
 draws (lines, ok and the remaining pool equal; floats within 1e-10), the
-candidate table over several ticks (table and ObsBatch equal), write-back
-and the line-fit helpers."""
+plain version of the wall-search kernel against the JAX greedy rounds at
+f64 and f32, the candidate table over several ticks (table and ObsBatch
+equal), write-back and the line-fit helpers; and the on-card check of the
+wall-search kernel (checks.wall_search_compare) against stand-ins for the
+kernel on the CPU."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +16,7 @@ from ekf_slam_tpu import config as jc
 from ekf_slam_tpu.ops import ransac as jr
 from ekf_slam_tpu.ops import scan as jscan
 from ekf_slam_tpu.sim import world as jw
+from ekf_slam_tpu_torch import checks as C
 from ekf_slam_tpu_torch.ops import ransac as tr
 from ekf_slam_tpu_torch.ops import scan as tscan
 
@@ -175,3 +179,150 @@ def test_sequential_wall_search_raises(rng):
                    tscan.Scan(*(t(v) for v in js)),
                    torch.zeros(9, dtype=torch.float64),
                    torch.tensor(0, dtype=torch.int32), p, 8)
+
+
+# examples/large_world_slam.py:76-77's extractor settings (refits, both
+# splits, the RMS gate)
+LARGE_WORLD = dict(line_consensus=36, bearing_window_deg=20.0,
+                   wall_search_timeout=9, sample_points=12, inlier_dist=0.15,
+                   refine_passes=2, refine_frac=0.4, split_gap=1.2,
+                   split_kink_deg=3.0, max_fit_rms=0.04)
+WALL_SETS = [dict(), dict(refine_passes=2),
+             dict(split_gap=1.2, split_kink_deg=10.0, max_fit_rms=0.05),
+             LARGE_WORLD]
+WALL_IDS = ["default", "refine", "split", "large_world"]
+
+
+def _wall_inputs(rng, p, key, dtype):
+    """World points, validity and the port's seeded trial lines from the
+    JAX wall search's own draws, in ``dtype``."""
+    pts, valid = _world_points(rng, np.array([0.4, -0.3, 25.0]))
+    pts = jnp.asarray(pts, dtype)
+    u, s = _draws(key)
+    trial, trial_ok = tr.seed_trials(t(pts), t(valid), port(p), NH,
+                                     draws=(u.to(t(pts).dtype),
+                                            s.to(t(pts).dtype)))
+    return pts, valid, trial, trial_ok
+
+
+@pytest.mark.parametrize("kw", WALL_SETS, ids=WALL_IDS)
+def test_wall_search_ref_matches_jax_f64(rng, kw):
+    """The plain version of the wall-search kernel, fed the trial lines
+    the port seeds from the JAX draws, against JAX find_walls_batched's
+    greedy rounds: ok and the remaining pool equal, lines and statistics
+    within 1e-10."""
+    p = _rp(**kw)
+    key = jax.random.PRNGKey(3)
+    pts, valid, trial, trial_ok = _wall_inputs(rng, p, key, jnp.float64)
+    want = jr.find_walls_batched(pts, valid, key, p, NH)
+    got = tr.wall_search_ref(t(pts), t(valid), trial, trial_ok, port(p))
+    np.testing.assert_array_equal(n(got[1]), n(want[1]))
+    assert n(got[1]).any()
+    np.testing.assert_array_equal(n(got[2]), n(want[2]))
+    np.testing.assert_allclose(n(got[0]), n(want[0]), rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(n(got[3]), n(want[3]), rtol=1e-10,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("kw", WALL_SETS, ids=WALL_IDS)
+def test_wall_search_ref_matches_jax_f32(rng, kw):
+    """The same at float32: ok and the remaining pool equal; in each
+    accepted round the JAX result's feet, angle and statistics lie within
+    checks.wall_search_tolerance of the port's f64 run (WALL_FACTOR times
+    the farthest of the port's f32 runs, its points reordered 16 ways,
+    plus 4 f32 ulps of each quantity's scale)."""
+    p = _rp(**dict(kw, dtype=jnp.float32))
+    key = jax.random.PRNGKey(3)
+    pts, valid, trial, trial_ok = _wall_inputs(rng, p, key, jnp.float32)
+    want = jr.find_walls_batched(pts, valid, key, p, NH)
+    tp = port(p)
+    args = (t(pts), t(valid), trial, trial_ok)
+    got = tr.wall_search_ref(*args, tp)
+    np.testing.assert_array_equal(n(got[1]), n(want[1]))
+    np.testing.assert_array_equal(n(got[2]), n(want[2]))
+    g = torch.Generator().manual_seed(0)
+    runs = [got] + [C._plain_run(args, tp, torch.randperm(B, generator=g))[
+        "res"] for _ in range(16)]
+    r64 = tr.wall_search_ref(args[0].double(), args[1], trial.double(),
+                             trial_ok, tp)
+    q64 = C.wall_search_quantities(r64)
+    extent = args[0][args[1]].abs().max().item()
+    tol = C.wall_search_tolerance([C.wall_search_quantities(r) for r in runs],
+                                  q64, extent)
+    gap = C.wall_search_gaps(C.wall_search_quantities(
+        tuple(torch.from_numpy(np.asarray(w)) for w in want)), q64)
+    acc = torch.from_numpy(n(want[1]))
+    assert acc.any()
+    assert (gap[acc] <= tol[acc]).all(), (gap[acc], tol[acc])
+
+
+def _reordered(seed):
+    """A stand-in for the kernel on the CPU: the plain version with the
+    points in another order, so only the order of its sums differs."""
+    def run(pts, valid, trial, trial_ok, params, counts_out=None,
+            pools_out=None):
+        perm = torch.randperm(pts.shape[0],
+                              generator=torch.Generator().manual_seed(seed))
+        pools = torch.empty_like(pools_out)
+        lines, ok, avail, stats = tr.wall_search_ref(
+            pts[perm], valid[perm], trial, trial_ok, params,
+            counts_out=counts_out, pools_out=pools)
+        pools_out[:, perm] = pools
+        back = torch.empty_like(avail)
+        back[perm] = avail
+        return lines, ok, back, stats
+    return run
+
+
+@pytest.mark.parametrize("setting,seed,B,NH", [
+    ("flagship", 0, 1024, 64), ("flagship", 1, 1000, 7),
+    ("large_world", 0, 1024, 64), ("large_world", 2, 1024, 64),
+    ("large_world", 1, 1000, 7)])
+def test_wall_search_compare_accepts_reordered_sums(setting, seed, B, NH):
+    """checks.wall_search_compare, the on-card check of the wall-search
+    kernel, passes a stand-in that differs from the plain version only in
+    the order of its sums (strict at the flagship settings; at
+    large_world's a divergent round is accepted only at a decision within
+    the f32 rounding band, and listed)."""
+    args, params = C.wall_search_case(seed, B, NH, setting, "cpu")
+    res = C.wall_search_compare(args, params, setting == "flagship",
+                                kernel=_reordered(seed + 100))
+    assert res["failures"] == []
+    assert res["compared"] and res["accepted"] > 0
+
+
+@pytest.mark.parametrize("fault", ["line", "stats", "pool", "counts"])
+@pytest.mark.parametrize("setting", ["flagship", "large_world"])
+def test_wall_search_compare_rejects_a_wrong_kernel(setting, fault):
+    """A stand-in kernel with one fault — a line tilted by 1e-4 rad, a
+    statistic off by 1e-3 of itself, one point of the pool flipped far from
+    every cut, one count changed — fails the check."""
+    args, params = C.wall_search_case(0, 1024, 64, setting, "cpu")
+    good = _reordered(7)
+    plain = C._plain_run(args, params)
+    near = {x[1] for r in range(params.wall_search_timeout)
+            for x in C._near_cuts(plain, [], r)}
+
+    def bad(pts, valid, trial, trial_ok, params, counts_out=None,
+            pools_out=None):
+        lines, ok, avail, stats = good(pts, valid, trial, trial_ok, params,
+                                       counts_out=counts_out,
+                                       pools_out=pools_out)
+        r0 = int(torch.nonzero(ok)[0])
+        if fault == "line":
+            m = torch.tan(torch.atan(lines[r0, 0].double()) + 1e-4)
+            lines[r0, 0] = m.float()
+        elif fault == "stats":
+            stats[r0, 1] *= 1.001
+        elif fault == "pool":
+            i = next(i for i in range(pts.shape[0]) if i not in near)
+            avail[i] = ~avail[i]
+            pools_out[r0:, i] = ~pools_out[r0:, i]
+        else:
+            counts_out[params.wall_search_timeout, 0] += 1
+        return lines, ok, avail, stats
+
+    res = C.wall_search_compare(args, params, setting == "flagship",
+                                kernel=bad)
+    assert res["failures"], res
