@@ -7,10 +7,15 @@ NVIDIA H100.
 Phases (each prints one line; any failure exits non-zero with no result):
 
 1. build the seven CUDA kernels from ekf_slam_tpu_torch/csrc (one nvcc per
-   source, started together) and print the card's name and power limit;
-2. K1 syrk_downdate against its plain version: bf16 at D = 20480, R = 16
-   (≤ 1 bf16 ulp of |P|max, output bit-symmetric) and f32 at D = 1003
-   and 2048 (≤ 1e-5 relative, bit-symmetric);
+   source, started together), print the card's name and power limit, and
+   count the tensor-core instructions (HMMA/HGMMA) in the SASS of K1's
+   bf16 kernel (`cuobjdump -sass`; more than 0, or the phase fails);
+2. K1 syrk_downdate against its plain version (checks.syrk_case and
+   syrk_compare): bf16 at (D, R) = (20480, 16), (20480, 1024), (2048,
+   1000) and (1003, 1024), f32 at (1003, 16), (2048, 16), (1003, 2) and
+   (2048, 1024); each random (≤ 1 bf16 ulp of |P|max, or ≤ 1e-5 of |P|max
+   in f32, with the count of elements that differ) and on integers, where
+   every sum is exact (bit-equal); in place, output bit-symmetric;
 3. K3 score_lines against its plain version at NH = 64, B = 1024: equal
    counts; then K3's one-launch wall search (wall_search: the initial
    scoring and every greedy round of find_walls_batched in one thread
@@ -20,8 +25,9 @@ Phases (each prints one line; any failure exits non-zero with no result):
    examples/large_world_slam.py's (refits, splits, RMS gate) a round may
    part only at a decision within the f32 rounding band of its cut (each
    one printed); lines and statistics within checks.wall_search_tolerance
-   of the f64 plain version; then a scan of 8192 beams, and the largest
-   B a block's shared memory holds at NH = 64;
+   of the f64 plain version; then a scan of the largest B a block's
+   shared memory holds at NH = 64 (10·B + 4·P2 + 13·NH bytes: 16,384 on
+   an H100), bit-equal, and one beam more, which must raise;
 4. K2 gate_costs_state, one launch that reads x, P, the landmark table
    and Rs as they lie, at M = 8 and M = 300 against K = 10000 slots on a
    P [20003²] f32 and at M = 8 on a padded P [20480²] (NaN wherever the
@@ -59,6 +65,22 @@ Phases (each prints one line; any failure exits non-zero with no result):
    torch.profiler line (device busy share, device operations per tick,
    the kernels with most device time), whose device operations per tick
    must be fewer than with the rounds as torch ops (printed beside them);
+6c. the JAX package's headline batched update (bench.py:211-276) at
+   recommended_schedule(10000): a full state of 10,000 landmarks
+   (checks.full_state, D = 20003 padded to 20480, bf16 P), bench.py's
+   measurements (checks.full_measurements), and per batch of M = 4096
+   the plain gate and update_chunked in G = 8 chunks (rows, SYRK: K1 at
+   rank 1024); 2 warm-up and 6 timed batches, counters set to 0 just
+   before each and read just after: 8 K1 launches and no other, no host
+   sync, P finite and bit-symmetric, n_active 10,000; the median batch
+   time with its spread, updates/s and a torch.profiler line with K1's
+   share of the device time.  Then the same at rank 1024 on the card
+   against the CPU (capacity 1000, D = 2048, M = 512 in one chunk, the
+   measurements with noise so that x moves): slots equal, x within 1e-5
+   of |x|max and moved by at least 10 times that; P element by element
+   within checks.syrk_gap_bound, K1 against its plain version on the
+   inputs it had on the path (checks.record_syrk), and the card's P
+   against the CPU's;
 7. the kernel path at full width: the same run with use_pallas,
    rows_gather='pallas' and the gemm correction (D = 20003 unpadded, f32
    P) for 32 ticks, counters set to 0 just before and read just after:
@@ -88,7 +110,8 @@ Phases (each prints one line; any failure exits non-zero with no result):
    events after one warm-up) beside its plain version, its library
    yardstick, its roofline bound (bytes or operations at the card's peak
    rates) and that bound raised to the launch floor, with its share of
-   the latter; K2 also beside the torch ops that fed its strip-taking
+   the latter; K1 also at R = 1024 beside torch.addmm and the parent's
+   kernel's time; K2 also beside the torch ops that fed its strip-taking
    predecessor; wall_search at the flagship and large_world settings, as
    CUDA-graph replays (device time) and as eager calls (host clock around
    synchronised calls: what a tick pays), beside its plain version timed
@@ -97,7 +120,12 @@ Phases (each prints one line; any failure exits non-zero with no result):
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  A kernel's `launches` in the JSON is its
-count from its path's run.  K6's is 0, since no session launches it, so
+count from its path's run.  K1's entry (R = 16, phase 6's count) also has
+`wide_rank`: K1 at R = 1024, D = 20480, with its launches counted in
+phase 6c's timed and warm-up batches, its time beside the plain
+version's, torch.addmm's and its bound.  The parent kernel's times
+(K1_BEFORE_MS, constants from an earlier run) appear in the phase-8 log
+only, not in the JSON.  K6's is 0, since no session launches it, so
 its entry also has `on_path: false` and `side_call_launches`, the launch
 on the recompression's factor in phase 7b; so has score_lines's, whose
 scoring now runs inside wall_search on every path (its side calls are
@@ -110,6 +138,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -130,6 +160,11 @@ OPS_BEFORE_FUSED_GATE = 1656
 # device operations per tick when the extractor's rounds ran as torch ops
 # around 1 + T score_lines launches (PERF.md §5)
 OPS_BEFORE_WALL_SEARCH = dict(tuned=2069, kernel=1634, srekf_fast=2094)
+
+# the parent's K1 (one block per 64x64 tile pair, f32 FMAs on CUDA cores)
+# at D = 20480 bf16, by rank: phase 8 on NVIDIA H100 80GB HBM3, 700.00 W
+# (PERF.md §6)
+K1_BEFORE_MS = {16: 0.9956, 1024: 20.0199}
 
 # device symbols of the port's kernels, as torch.profiler names them
 KERNEL_SYMBOLS = ("syrk_downdate_kernel", "gate_costs_kernel",
@@ -244,33 +279,40 @@ def pose_gaps(a, b):
     return dpos.max().item(), dhead.max().item(), worst
 
 
-def bf16_ulp(x):
-    """Spacing of bfloat16 numbers at magnitude x (8 significand bits)."""
-    return 2.0 ** (math.floor(math.log2(x)) - 7)
+def sass_mma_counts(path):
+    """Tensor-core instructions (HMMA, HGMMA) of each kernel in the
+    shared library ``path``, from ``cuobjdump -sass``: {symbol: count}."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.path.exists(exe), "cuobjdump not found: phase 1 cannot read "
+          "the compiled K1")
+    out = subprocess.run([exe, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    return {chunk.split()[0]: len(re.findall(r"\bHG?MMA\b", chunk))
+            for chunk in out.split("Function : ")[1:]}
 
 
-def profile_ticks(torch, sess, carry, traj, t0, n):
-    """Where a tick's time goes: ``n`` further ticks (from tick ``t0`` of
-    ``traj``) under torch.profiler.  Returns one line (the host window per
-    tick, the device busy share of that window (union of the kernel and
-    copy intervals), the device operations per tick, and the five
-    kernels with the most device time) and the device operations per
-    tick (None where the profiler saw no device activity)."""
+def profile_device(torch, body, n, unit):
+    """Where the time of ``n`` units (ticks, batches) goes: ``body()``
+    runs them under torch.profiler.  Returns one line (the host window
+    per unit, the device busy share of that window (union of the kernel
+    and copy intervals), the device operations per unit, and the five
+    kernels with the most device time), the device operations per unit
+    (None where the profiler saw no device activity), and the device busy
+    ms and each port kernel's device ms per unit."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         w0 = time.perf_counter()
-        for t in range(t0, t0 + n):
-            carry, _ = sess.step(carry, traj.odom[t], traj.ranges[t],
-                                 traj.beam_angles)
+        body()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - w0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == cuda)
     if not spans:
-        return "not measured: torch.profiler saw no device activity", None
+        return ("not measured: torch.profiler saw no device activity", None,
+                None)
     busy, end = 0.0, -math.inf
     for s, e, _ in spans:
         if e > end:
@@ -280,19 +322,34 @@ def profile_ticks(torch, sess, carry, traj, t0, n):
     for s, e, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    top_s = "; ".join(f"{name[:60]} {us / n / 1e3:.3f} ms/tick"
+    top_s = "; ".join(f"{name[:60]} {us / n / 1e3:.3f} ms/{unit}"
                       for name, us in top)
-    ours = []
+    ours, kernel_ms = [], {}
     for kern in KERNEL_SYMBOLS:
         durs = [e - s for s, e, name in spans if kern in name]
         if durs:
-            ours.append(f"{kern} {len(durs) / n:.0f}/tick at "
+            kernel_ms[kern] = sum(durs) / n / 1e3
+            ours.append(f"{kern} {len(durs) / n:.0f}/{unit} at "
                         f"{sum(durs) / len(durs) / 1e3:.4f} ms device each")
-    return (f"{n} ticks, host window {window_us / n / 1e3:.3f} ms/tick, "
-            f"device busy {busy / n / 1e3:.3f} ms/tick "
-            f"({100 * busy / window_us:.1f}% of the window), "
-            f"{len(spans) / n:.0f} device ops/tick; ours: {ours}; "
-            f"top: {top_s}"), len(spans) / n
+    units = {"tick": "ticks", "batch": "batches"}[unit] if n > 1 else unit
+    return (
+        f"{n} {units}, host window {window_us / n / 1e3:.3f} ms/{unit}, "
+        f"device busy {busy / n / 1e3:.3f} ms/{unit} "
+        f"({100 * busy / window_us:.1f}% of the window), "
+        f"{len(spans) / n:.0f} device ops/{unit}; ours: {ours}; "
+        f"top: {top_s}"), len(spans) / n, dict(busy_ms=busy / n / 1e3,
+                                               kernel_ms=kernel_ms)
+
+
+def profile_ticks(torch, sess, carry, traj, t0, n):
+    """``profile_device`` over ``n`` further ticks of ``sess`` from tick
+    ``t0`` of ``traj``: its line and the device operations per tick."""
+    def body():
+        c = carry
+        for t in range(t0, t0 + n):
+            c, _ = sess.step(c, traj.odom[t], traj.ranges[t],
+                             traj.beam_angles)
+    return profile_device(torch, body, n, "tick")[:2]
 
 
 def slice_params(torch, capacity, update_mode="batched", **ekf_kw):
@@ -385,11 +442,14 @@ def main():
     check(os.path.dirname(os.path.dirname(os.path.abspath(tp.__file__)))
           == HERE, f"ekf_slam_tpu_torch resolved outside {HERE}")
     from ekf_slam_tpu_torch import session as session_mod
-    from ekf_slam_tpu_torch.checks import (bearing_gap_ulps, gate_case,
-                                           gate_tolerance, pair_starts,
-                                           recompress_qr_case,
-                                           score_lines_case,
-                                           session_on_devices,
+    from ekf_slam_tpu_torch.checks import (bearing_gap_ulps, bench_batch,
+                                           bench_params, bf16_ulps,
+                                           full_measurements, full_state,
+                                           gate_case, gate_tolerance,
+                                           pair_starts, recompress_qr_case,
+                                           record_syrk, score_lines_case,
+                                           session_on_devices, syrk_case,
+                                           syrk_compare, syrk_gap_bound,
                                            wall_search_case,
                                            wall_search_compare)
     from ekf_slam_tpu_torch.ops.ransac import wall_search_ref
@@ -399,7 +459,8 @@ def main():
     from ekf_slam_tpu_torch.ops import gating as G
     from ekf_slam_tpu_torch.ops import kernels as K
     from ekf_slam_tpu_torch.sim import world as W
-    from ekf_slam_tpu_torch.utils.schedule import tuned_params
+    from ekf_slam_tpu_torch.utils.schedule import (recommended_schedule,
+                                                   tuned_params)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -412,38 +473,51 @@ def main():
     card = gpu_name_and_limit()
     log(f"phase 1 build ok: {build_s:.2f} s (build dir {K.BUILD_DIR}); "
         f"card: {card}")
+    mma = sass_mma_counts(K.library_path("syrk_downdate"))
+    mma_bf16 = {k: v for k, v in mma.items()
+                if "syrk_downdate_kernel_bf16" in k}
+    check(len(mma_bf16) == 2 and min(mma_bf16.values()) > 0,
+          f"K1's bf16 kernel has no HMMA/HGMMA instruction: {mma}")
+    log(f"phase 1 K1 SASS ok: tensor-core instructions (HMMA/HGMMA) per "
+        f"kernel {mma}")
 
     # -- 2. K1 against its plain version ----------------------------------------
+    # each case random (within one rounding of the storage type) and exact
+    # (integers: every sum exact, so bit-equal), output bit-symmetric
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    D, R = 20480, 16
-    A = torch.randn((D, D), generator=g, device=dev)
-    P = ((A + A.T) * 0.5).to(torch.bfloat16)            # bit-symmetric
-    del A
-    Wb = (torch.randn((D, R), generator=g, device=dev) * 0.1).to(
-        torch.bfloat16)
-    ref = K.syrk_downdate_ref(P, Wb)
-    out = K.syrk_downdate(P.clone(), Wb)
-    torch.cuda.synchronize()
-    err_k1 = (out.float() - ref.float()).abs().max().item()
-    ulp = bf16_ulp(P.float().abs().max().item())
-    check(err_k1 <= ulp, f"K1 bf16 max|Δ| {err_k1} > 1 ulp {ulp}")
-    check(torch.equal(out, out.T), "K1 bf16 output not bit-symmetric")
-    del out, ref
-    for Dr in (1003, 2048):            # ragged scalar path, aligned f32 path
-        A = torch.randn((Dr, Dr), generator=g, device=dev, dtype=torch.float64)
-        Pf = ((A + A.T) * 0.5).float()
-        Wf = torch.randn((Dr, R), generator=g, device=dev)
-        ref = K.syrk_downdate_ref(Pf, Wf)
-        out = K.syrk_downdate(Pf.clone(), Wf)
-        torch.cuda.synchronize()
-        rel = ((out - ref).abs().max() / ref.abs().max()).item()
-        check(rel <= 1e-5, f"K1 f32 D={Dr} relative error {rel} > 1e-5")
-        check(torch.equal(out, out.T), f"K1 f32 D={Dr} not bit-symmetric")
-        log(f"phase 2 K1 f32 D={Dr} ok: relative error {rel:.3e}, "
-            "bit-symmetric")
-    log(f"phase 2 K1 bf16 D={D} R={R} ok: max|Δ| {err_k1} "
-        f"(1 ulp of |P|max = {ulp}), bit-symmetric")
+    bf16, f32 = torch.bfloat16, torch.float32
+    err_k1 = {}                         # at D = 20480, by rank
+    for Dk, Rk, dtk in ((20480, 16, bf16), (20480, 1024, bf16),
+                        (2048, 1000, bf16), (1003, 1024, bf16),
+                        (1003, 16, f32), (2048, 16, f32), (1003, 2, f32),
+                        (2048, 1024, f32)):
+        notes, label = [], f"K1 D={Dk} R={Rk} {str(dtk)[6:]}"
+        for exact in (False, True):
+            P, Wk = syrk_case(g, Dk, Rk, dtk, exact)
+            ref = K.syrk_downdate_ref(P, Wk)
+            pmax = P.float().abs().max().item()
+            ptr = P.data_ptr()
+            out = K.syrk_downdate(P, Wk)
+            torch.cuda.synchronize()
+            res = syrk_compare(out, ref, pmax)
+            what = f"{label} {'exact' if exact else 'random'}"
+            check(out.data_ptr() == ptr, f"{what}: not in place")
+            check(res["symmetric"], f"{what}: output not bit-symmetric")
+            check(res["n_diff"] == 0 if exact else res["ok"],
+                  f"{what}: max|Δ| {res['err']} (tolerance {res['tol']}), "
+                  f"{res['n_diff']} elements differ")
+            if not exact and Dk == 20480:
+                err_k1[Rk] = res["err"]
+            notes.append(f"{'exact: bit-equal' if exact else 'random:'}"
+                         + ("" if exact else
+                            f" max|Δ| {res['err']:.3e} (tolerance "
+                            f"{res['tol']:.3e}), {res['n_diff']} of "
+                            f"{Dk * Dk} elements differ"))
+            del P, Wk, ref, out
+        log(f"phase 2 {label} ok: {'; '.join(notes)}; bit-symmetric, in "
+            "place")
+    torch.cuda.empty_cache()
 
     # -- 3. K3 against its plain version ---------------------------------------
     NH, B, thresh = 64, 1024, 0.25
@@ -474,21 +548,29 @@ def main():
                 f"{res['ratio']:.3f}, feet max|Δ| against the f32 plain "
                 f"version {res['max_abs_err']:.3e} m"
                 + "".join(f"; {x}" for x in res["notes"]))
-    # a scan eight times the simulator's, and the largest a block holds
-    argsw, pw = wall_search_case(5, 8192, 64, "flagship", dev)
-    res = wall_search_compare(argsw, pw, True)
-    check(not res["failures"], f"wall_search B=8192: {res['failures']}")
+    # the largest scan a block's shared memory holds, and one beam more
     lib_ws = K._lib("wall_search")
-    limit = lib_ws.wall_search_smem_limit(torch.cuda.current_device())
+    limit = K._wall_search_limit(lib_ws, torch.cuda.current_device())
     lo, hi = 1, 1 << 16                 # the largest B whose layout fits
     while lo < hi:
         mid = (lo + hi + 1) // 2
         lo, hi = ((mid, hi) if lib_ws.wall_search_smem(mid, 64) <= limit
                   else (lo, mid - 1))
-    log(f"phase 3 wall_search flagship seed 5 B=8192 NH=64 ok: "
+    argsw, pw = wall_search_case(5, lo, 64, "flagship", dev)
+    res = wall_search_compare(argsw, pw, True)
+    check(not res["failures"], f"wall_search B={lo}: {res['failures']}")
+    big = wall_search_case(5, lo + 1, 64, "flagship", dev)
+    try:
+        K.wall_search(*big[0], big[1])
+        check(False, f"wall_search took B={lo + 1}, past its shared memory")
+    except ValueError:
+        pass
+    del big
+    log(f"phase 3 wall_search flagship seed 5 B={lo} NH=64 ok: "
         f"{res['accepted']} walls, rounds compared {res['compared']}, worst "
         f"gap/tolerance {res['ratio']:.3f}; a block may take {limit} bytes "
-        f"of dynamic shared memory: B ≤ {lo} at NH = 64")
+        f"of dynamic shared memory (the layout takes 10·B + 4·P2 + 13·NH): "
+        f"B ≤ {lo} at NH = 64, and B = {lo + 1} raises")
     side_sl = K.score_lines.launches - sl_before
 
     # -- 4. K2, K4, K5 and K6 against their plain versions --------------------
@@ -715,6 +797,144 @@ def main():
     del run6, filt
     torch.cuda.empty_cache()
 
+    # -- 6c. the 10k batched update: the JAX package's headline benchmark ------
+    # bench.py:211-276 at recommended_schedule(10000): M = 4096 exact
+    # re-observations a batch, the plain gate, update_chunked in 8 chunks
+    # of 512 (rows, bf16 P, SYRK: one K1 launch of rank 1024 a chunk) on
+    # a full state of 10,000 landmarks, D = 20003 padded to 20480
+    ep6c = bench_params(10000)
+    M6c = recommended_schedule(10000)["batch"]
+    check((M6c, ep6c.update_chunks, ep6c.pht_mode, ep6c.cov_dtype,
+           ep6c.correction) == (4096, 8, "rows", torch.bfloat16, "syrk"),
+          f"the 10k schedule changed: M={M6c}, {ep6c}")
+    WARM6C, TIMED6C = 2, 6
+    st6 = full_state(ep6c, 10000, seed=0, device=dev)
+    check(st6.P.shape == (20480, 20480), f"full state P {st6.P.shape}")
+    zs6 = torch.tensor(full_measurements(st6.x, 10000,
+                                         (WARM6C + TIMED6C) * M6c, seed=1),
+                       dtype=torch.float32, device=dev).reshape(-1, M6c, 3)
+    want6c = {k: ep6c.update_chunks if k == "syrk_downdate" else 0
+              for k in counted}
+    batch_ms, n_assoc, k1_6c_launches = [], [], 0
+    for b in range(WARM6C + TIMED6C):
+        ev6 = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        for fn in counted.values():
+            fn.launches = 0
+        # sync census of the batch (PyTorch's own, as in phases 6 and 7)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                ev6[0].record()
+                st6, slots6 = bench_batch(st6, zs6[b], ep6c)
+                ev6[1].record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches6c = {name: fn.launches for name, fn in counted.items()}
+        k1_6c_launches += launches6c["syrk_downdate"]
+        syncs6c = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+                   for w in caught if "synchroniz" in str(w.message)]
+        torch.cuda.synchronize()
+        check(launches6c == want6c, f"batch {b} launched {launches6c}, "
+              f"expected {want6c}")
+        check(not syncs6c, f"batch {b} synchronised with the host at "
+              f"{syncs6c}")
+        check(bool(torch.isfinite(st6.P).all()), f"batch {b}: P not finite")
+        check(torch.equal(st6.P, st6.P.T), f"batch {b}: P not bit-symmetric")
+        check(int(st6.n_active.item()) == 10000,
+              f"batch {b}: n_active {int(st6.n_active.item())}")
+        n_assoc.append(int((slots6.long() == zs6[b, :, 2].long() - 1).sum()))
+        if b >= WARM6C:
+            batch_ms.append(ev6[0].elapsed_time(ev6[1]))
+    check(bool(torch.isfinite(st6.x).all()), "phase 6c: x not finite")
+    med6c = statistics.median(batch_ms)
+    spread6c = 100 * (max(batch_ms) - min(batch_ms)) / med6c
+    log(f"phase 6c the 10k batched update ok: M={M6c}, G={ep6c.update_chunks}"
+        f" (K1 at R={2 * M6c // ep6c.update_chunks}), D=20480 bf16, "
+        f"{WARM6C} warm-up and {TIMED6C} timed batches, each with launches "
+        f"{want6c}, no host sync, P finite and bit-symmetric, n_active 10000"
+        f"; measurements associated with the slot they were made from: "
+        f"{n_assoc} of {M6c}; batch median {med6c:.3f} ms (CUDA events; "
+        f"min {min(batch_ms):.3f}, max {max(batch_ms):.3f}, spread "
+        f"{spread6c:.1f}%): {M6c / med6c * 1e3:.1f} updates/s")
+    prof6c, _, dev6c = profile_device(
+        torch, lambda: bench_batch(st6, zs6[-1], ep6c), 1, "batch")
+    k1_6c = dev6c["kernel_ms"].get("syrk_downdate_kernel", 0.0) \
+        if dev6c else None
+    log(f"phase 6c profile: {prof6c}" + (
+        f"; K1 {k1_6c:.3f} ms of the {dev6c['busy_ms']:.3f} ms device busy "
+        f"({100 * k1_6c / dev6c['busy_ms']:.1f}%)" if dev6c else ""))
+    del st6, zs6, slots6
+    torch.cuda.empty_cache()
+    # card against CPU at the same rank: a full state of 1000 landmarks
+    # (D = 2003 padded to 2048), rows, bf16 P, SYRK, M = 512 in one chunk,
+    # the measurements with noise (0.1 m, 0.1°) so that the update moves x
+    ep_s = bench_params(1000, pht_mode="rows", cov_dtype=torch.bfloat16,
+                        correction="syrk", update_chunks=1)
+    st_h = full_state(ep_s, 1000, seed=2, device="cpu")
+    zs_h = torch.tensor(full_measurements(st_h.x, 1000, 512, seed=3,
+                                          noise=(0.1, 0.1)),
+                        dtype=torch.float32)
+    x_in = st_h.x.clone()
+    st_c = FilterState(*(v.to(dev) for v in st_h))
+    for fn in counted.values():
+        fn.launches = 0
+    with record_syrk() as rec_c:
+        out_c, slots_c = bench_batch(st_c, zs_h.to(dev), ep_s)
+    torch.cuda.synchronize()
+    launches_s = {name: fn.launches for name, fn in counted.items()}
+    check(launches_s == {k: int(k == "syrk_downdate") for k in counted},
+          f"the rank-1024 update on the card launched {launches_s}")
+    with record_syrk() as rec_h:
+        out_h, slots_h = bench_batch(st_h, zs_h, ep_s)
+    check(torch.equal(slots_c.cpu(), slots_h), "card and CPU slots differ")
+    (P_in, W_c), (P_in_h, W_h) = rec_c[0], rec_h[0]
+    check(torch.equal(P_in.cpu(), P_in_h), "card and CPU P differ before K1")
+    # x: f32 sums in other orders, held to the bf16-storage tolerance of
+    # the port's parity tests (1e-5 of |x|max), which must be well under
+    # what the noisy update moved x by, or the check would be empty
+    dx = (out_c.x.cpu() - out_h.x).abs().max().item()
+    tol_x = 1e-5 * out_h.x.abs().max().item()
+    moved = (out_h.x - x_in).abs().max().item()
+    check(dx <= tol_x, f"card/CPU x differ by {dx} > {tol_x}")
+    check(moved >= 10 * tol_x, f"the update moved x by {moved}, not 10x "
+          f"the tolerance {tol_x}: the x check would be empty")
+    # P, element by element (checks.syrk_gap_bound): K1 on the card against
+    # its plain version on the inputs it had on the path (the bf16
+    # roundings and the f32 sums' errors), then the card's P against the
+    # CPU's (also what their W, each rounded to bf16 from f32 values
+    # summed in other orders, make of W·Wᵀ)
+    ref_c = K.syrk_downdate_ref(P_in.clone(), W_c)
+    gap_k = (out_c.P.double() - ref_c.double()).abs()
+    over_k = int((gap_k > syrk_gap_bound(out_c.P, ref_c, P_in, W_c, W_c)
+                  ).sum())
+    del ref_c, gap_k
+    Ph = out_h.P.to(dev)
+    gap = (out_c.P.double() - Ph.double()).abs()
+    bound = syrk_gap_bound(out_c.P, Ph, P_in, W_c, W_h.to(dev))
+    over = int((gap > bound).sum())
+    worst = (gap / bound).max().item()
+    own = int((gap > bf16_ulps(torch.maximum(out_c.P.float().abs(),
+                                             Ph.float().abs()))).sum())
+    n_wdiff = int((W_c.cpu() != W_h).sum())
+    check(over_k == 0, f"K1 on the path: {over_k} elements of P past the "
+          "bound of its plain version on the same inputs")
+    check(over == 0, f"card/CPU P: {over} elements past their bound "
+          f"(largest gap/bound {worst:.3f})")
+    check(torch.equal(out_c.P, out_c.P.T), "card P not bit-symmetric")
+    log(f"phase 6c card vs CPU at R=1024 ok: capacity 1000, D=2048 bf16, "
+        f"M=512 in one chunk, measurements with noise, launches "
+        f"{launches_s}; slots equal ({int((slots_h.long() == zs_h[:, 2].long() - 1).sum())} "
+        f"of 512 on the slot drawn); x max|Δ| {dx:.3e} (tolerance "
+        f"{tol_x:.3e}, the update moved x by up to {moved:.3e}); K1 on the "
+        f"path's own inputs against its plain version: {over_k} elements "
+        f"past their bound; card vs CPU P: {over} of {gap.numel()} elements "
+        f"past their bound (largest gap/bound {worst:.3f}), "
+        f"{int(torch.count_nonzero(gap))} differ, {own} by more than one "
+        f"bf16 ulp of their own magnitude, from {n_wdiff} of {W_h.numel()} "
+        f"W elements that differ; card P bit-symmetric")
+    del st_h, st_c, out_c, out_h, Ph, gap, bound, rec_c, rec_h, P_in, W_c
+
     # -- 7. the kernel path at full width ------------------------------------------
     T7 = 32
     ep7, rp7 = slice_params(torch, 10000, pht_mode="rows", **KERNEL_PATH)
@@ -910,14 +1130,29 @@ def main():
         torch.bfloat16)
     entry("syrk_downdate", "syrk_downdate.cu",
           "ekf_slam_tpu/ops/pallas/kernels.py:229",
-          launches6["syrk_downdate"], err_k1,
+          launches6["syrk_downdate"], err_k1[16],
           cuda_ms(torch, lambda: K.syrk_downdate(Pm, Wm), 20),
           cuda_ms(torch, lambda: K.syrk_downdate_ref(Pm, Wm), 5),
           2 * Dm * Dm * 2 + Dm * Rm * 2,
           Dm * Dm * Rm + Dm * Dm,          # half the products, + subtract
           BF16_FLOPS,
           cuda_ms(torch, lambda: torch.addmm(Pm, Wm, Wm.T, alpha=-1), 5))
-    del Pm, P6
+    # K1 at the batched update's rank: the 10k schedule's chunks of 512
+    # observations give W [D, 1024] (phase 6c)
+    Rw = 1024
+    Ww = (torch.randn((Dm, Rw), generator=g, device=dev) * 1e-3).to(
+        torch.bfloat16)
+    bw = (2 * Dm * Dm * 2 + Dm * Rw * 2) / HBM_BYTES_PER_S * 1e3
+    ow = (Dm * Dm * Rw + Dm * Dm) / BF16_FLOPS * 1e3
+    kernels["syrk_downdate"]["wide_rank"] = dict(
+        R=Rw, D=Dm, launches=k1_6c_launches,
+        max_abs_err=err_k1[Rw],
+        ms=cuda_ms(torch, lambda: K.syrk_downdate(Pm, Ww), 10),
+        plain_ms=cuda_ms(torch, lambda: K.syrk_downdate_ref(Pm, Ww), 3),
+        library_ms=cuda_ms(
+            torch, lambda: torch.addmm(Pm, Ww, Ww.T, alpha=-1), 5),
+        bound_ms=max(bw, ow), bound_by="bytes" if bw >= ow else "operations")
+    del Pm, P6, Ww
 
     # K2 at the kernel path's shape: M = 8 against K = 10000 on P [20003²]
     M8, K8 = args8[5].shape[0], args8[2].shape[0]
@@ -1030,6 +1265,15 @@ def main():
             f"bound/time {100 * k['floor_bound_ms'] / k['ms']:.1f}%; "
             f"{k['launches']} launches on its path, "
             f"{k.get('side_call_launches', 0)} beside it)")
+    k1 = kernels["syrk_downdate"]
+    for r_, k_ in ((Rm, k1), (Rw, k1["wide_rank"])):
+        log(f"phase 8 syrk_downdate at R={r_}, D={Dm} bf16: {k_['ms']:.4f} "
+            f"ms (the parent's kernel: {K1_BEFORE_MS[r_]:.4f} ms, a constant "
+            f"from an earlier run, {K1_BEFORE_MS[r_] / k_['ms']:.2f}x), "
+            f"torch.addmm "
+            f"{k_['library_ms']:.4f} ms, plain {k_['plain_ms']:.4f} ms, "
+            f"bound {k_['bound_ms']:.6f} ms by {k_['bound_by']}: bound/time "
+            f"{100 * k_['bound_ms'] / k_['ms']:.1f}%")
     log(f"phase 8 launch floor: {floor_ms:.6f} ms a launch (a one-element "
         f"add_ replayed 2000 times in one CUDA graph)")
     for setting, w in ws.items():

@@ -2,29 +2,145 @@
 and ``tests/test_torch_cuda.py``): the K3 scoring case, the wall-search
 case and its comparison with the plain version, the K2 gating case and
 the tolerance of its in-kernel bearing, the K5 pair starts, the
-square-root recompression's QR branch, and one session run on several
-devices with the same inputs.  Each caller keeps its own shapes and
-tolerances."""
+square-root recompression's QR branch, one session run on several
+devices with the same inputs, and the JAX package's batched-update
+benchmark (bench.py) as the port runs it: its parameters, full state,
+measurements and one gate + update batch.  Each caller keeps its own
+shapes and tolerances."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
-from .config import EKFParams, RansacParams, SimConfig
+from .config import EKFParams, RansacParams, SimConfig, resolve_device
+from .models import batched as _batched
+from .models.batched import update_chunked
 from .models.srekf import _retriangularize
 from .models.srekf_fast import sr_recompress
 from .ops import gating as G
 from .ops.angles import atan2d, wrap_to_360
+from .ops.association import gate_batch
 from .ops.blocked_chol import chol_for_state
 from .ops.kernels import syrk_gram, wall_search
 from .ops.ransac import perpendicular_foot, seed_trials, wall_search_ref
 from .ops.scan import scan_from_ranges, scan_to_world
 from .session import SlamSession
 from .sim import world as W
-from .state import FilterState
+from .state import FilterState, round_up
+from .utils.schedule import tuned_params
+
+
+def syrk_case(g: torch.Generator, D: int, R: int, dtype, exact: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inputs of ``kernels.syrk_downdate`` on ``g``'s device: a
+    bit-symmetric P [D, D] and W [D, R], both of ``dtype``.
+
+    Random (``exact`` false): P = (A + Aᵀ)/2 with A standard normal, and W
+    normal scaled by 0.1·√(16/R), so W·Wᵀ keeps the size it has at a
+    tick's rank 16 (its diagonal ~0.16).  ``exact``: integers, P in
+    [−64, 64] and W in {−1, 0, 1} with one entry in 16 nonzero, so every
+    product, every partial sum and the result (|P − W·Wᵀ| well under 256)
+    are exact in f32 and in bf16: the kernel must then equal the plain
+    version to the bit, whatever the order of its sums."""
+    dev = g.device
+    if exact:
+        A = torch.randint(-64, 65, (D, D), generator=g, device=dev,
+                          dtype=torch.float32)
+        P = (torch.triu(A) + torch.triu(A, 1).T).to(dtype)
+        del A
+        nz = torch.rand((D, R), generator=g, device=dev) < 1 / 16
+        sign = torch.randint(0, 2, (D, R), generator=g, device=dev) * 2 - 1
+        return P, (nz * sign).to(dtype)
+    A = torch.randn((D, D), generator=g, device=dev)
+    P = ((A + A.T) * 0.5).to(dtype)
+    del A
+    W = torch.randn((D, R), generator=g, device=dev) * (0.1 * math.sqrt(
+        16 / R))
+    return P, W.to(dtype)
+
+
+def bf16_ulp(x: float) -> float:
+    """Spacing of bfloat16 numbers at magnitude x (8 significand bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def syrk_compare(out: torch.Tensor, ref: torch.Tensor, P_absmax: float
+                 ) -> Dict[str, object]:
+    """The kernel's P − W·Wᵀ (``out``) against the plain version's
+    (``ref``), from an input P whose largest magnitude is ``P_absmax``:
+    both accumulate exact products in f32 in other orders, so in bf16 an
+    element may round to the neighbouring value, within one bf16 ulp of
+    |P|max; in f32 the sums agree within 1e-5 of |ref|max.  Returns the
+    largest gap, its tolerance, the number of elements that differ, and
+    whether ``out`` is bit-symmetric."""
+    d = (out.float() - ref.float()).abs()
+    tol = (bf16_ulp(P_absmax) if out.dtype == torch.bfloat16
+           else 1e-5 * ref.abs().max().item())
+    err = d.max().item()
+    return dict(err=err, tol=tol, n_diff=int(torch.count_nonzero(d)),
+                symmetric=bool(torch.equal(out, out.T)),
+                ok=err <= tol)
+
+
+def bf16_ulps(t: torch.Tensor) -> torch.Tensor:
+    """Spacing of bfloat16 numbers at each |t|, as f32 (zero and subnormal
+    magnitudes take the spacing at the smallest normal, 2⁻¹³³)."""
+    m = t.float().abs().clamp_min(2.0 ** -126)
+    _, e = torch.frexp(m)
+    return torch.ldexp(torch.ones_like(m), e - 8)
+
+
+def syrk_gap_bound(a: torch.Tensor, b: torch.Tensor, P: torch.Tensor,
+                   Wa: torch.Tensor, Wb: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound (f64) on |a − b| for two bf16 downdates of one P,
+    a = P − Wa·Waᵀ and b = P − Wb·Wbᵀ, each summed in f32 in any order
+    and rounded once to bf16:
+
+        ulp(max(|a|, |b|)) + |Wa·Waᵀ − Wb·Wbᵀ|
+            + γ·(2|P| + |Wa|·|Wa|ᵀ + |Wb|·|Wb|ᵀ)
+
+    The first term is the two roundings to bf16 (half an ulp each, neither
+    wider than the spacing at the larger result); the second is what the
+    inputs' own difference makes, exactly (0 when Wa is Wb); the third
+    bounds the f32 sums' errors, R products and the subtraction, with
+    γ = n·2⁻²³/(1 − n·2⁻²³) and n = R + 1: one f32 ulp an operation, which
+    also covers accumulation that truncates."""
+    f = torch.float64
+    A, B = Wa.to(f), Wb.to(f)
+    n = Wa.shape[1] + 1
+    gamma = n * 2.0 ** -23 / (1 - n * 2.0 ** -23)
+    bound = (A @ A.T - B @ B.T).abs_()
+    A.abs_()
+    B.abs_()
+    bound += gamma * (2 * P.to(f).abs() + A @ A.T + B @ B.T)
+    bound += bf16_ulps(torch.maximum(a.float().abs(), b.float().abs())).to(f)
+    return bound
+
+
+@contextlib.contextmanager
+def record_syrk():
+    """Within the block, every K1 downdate of the batched update
+    (``models.batched.update_batch``) records its inputs: yields a list
+    that receives a copy of (P before the downdate, W) for each call, on
+    their device.  The call itself goes on to the wrapper, and its launch
+    counter, unchanged."""
+    inner = _batched.syrk_downdate
+    calls = []
+
+    def recording(P, W):
+        calls.append((P.clone(), W.clone()))
+        return inner(P, W)
+
+    _batched.syrk_downdate = recording
+    try:
+        yield calls
+    finally:
+        _batched.syrk_downdate = inner
 
 
 def score_lines_case(g: torch.Generator, NH: int, B: int, thresh: float
@@ -537,3 +653,97 @@ def session_on_devices(ep: EKFParams, rp: RansacParams, T: int,
                                   draws=[(u.to(where), s.to(where))
                                          for u, s in draws])
     return outs
+
+
+def bench_params(K: int, **overrides) -> EKFParams:
+    """The EKFParams of the JAX package's batched-update benchmark at K
+    landmarks (bench.py:153-156, 211-226): ML association, s_cost 1e6,
+    s_thresh 1e12, f32 compute, at ``tuned_params``' schedule (at 10k:
+    rows P·Hᵀ, bf16 P, the SYRK correction, 8 chunks); ``overrides``
+    replace fields after that."""
+    base = EKFParams(capacity=K, association="ml", s_cost=1e6,
+                     s_thresh=1e12, ref_compat=False, update_mode="batched",
+                     dtype=torch.float32)
+    return dataclasses.replace(tuned_params(base), **overrides)
+
+
+def full_state(params: EKFParams, K: int, seed: int = 0, device=None
+               ) -> FilterState:
+    """The benchmark's state (bench.py:111-137, make_full_state): all K
+    slots active (K is ``params.capacity``), x holding landmarks drawn
+    uniform in [-40, 40]² by numpy from ``seed`` (the benchmark's draws,
+    so x, sig, active and n_active equal its state's), sig = 1..K, and
+    P = 0.05·I + 0.02·A·Aᵀ over the 3 + 2K dims, in ``params.cov_dt``,
+    with A [3 + 2K, 8]/√(3 + 2K) drawn on the CPU by a torch.Generator from
+    ``seed`` (the benchmark draws A with jax.random) and the product formed
+    on ``device``, made symmetric to the bit.  Under correction='syrk' D
+    is padded to a multiple of 512 with zero rows, as the benchmark pads
+    it for the kernel (bench.py:248-253)."""
+    if K != params.capacity:
+        raise ValueError(f"K={K} must be params.capacity "
+                         f"({params.capacity})")
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    D = params.dim
+    Dp = round_up(D, 512) if params.correction == "syrk" else D
+    x = np.zeros(Dp, np.float64)
+    x[3:3 + 2 * K] = rng.uniform(-40, 40, (K, 2)).reshape(-1)
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn((D, 8), generator=g, dtype=params.dtype).to(device)
+    A = A / torch.sqrt(torch.tensor(float(D), dtype=params.dtype,
+                                    device=device))
+    M = A @ A.T
+    M.mul_(0.02)
+    M.diagonal().add_(0.05)
+    S = M + M.T                         # (a + b)·0.5 is symmetric to the bit
+    del M
+    S.mul_(0.5)
+    P = torch.zeros((Dp, Dp), dtype=params.cov_dt, device=device)
+    P[:D, :D] = S
+    del S
+    return FilterState(
+        x=torch.tensor(x, dtype=params.dtype, device=device), P=P,
+        sig=torch.arange(1, K + 1, dtype=params.dtype, device=device),
+        active=torch.ones((K,), dtype=torch.bool, device=device),
+        n_active=torch.tensor(K, dtype=torch.int32, device=device))
+
+
+def full_measurements(x, K: int, n: int, seed: int = 1,
+                      noise: Optional[Tuple[float, float]] = None
+                      ) -> np.ndarray:
+    """The benchmark's measurements (bench.py:139-150, make_measurements),
+    in numpy to the bit: n rows (range, bearing in degrees, signature),
+    each the exact predicted measurement of a landmark drawn from ``seed``,
+    so the ML gate associates it and the update runs.  ``x`` is the
+    state's mean (a tensor or an array).  ``noise`` (σ of range in m and
+    of bearing in degrees; the benchmark has none) adds Gaussian noise
+    from the same generator after the draws, so that the innovation is
+    not zero and the update moves the mean."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().double().numpy()
+    rng = np.random.default_rng(seed)
+    x = np.asarray(x, np.float64)
+    idx = rng.integers(0, K, n)
+    lm = x[3:3 + 2 * K].reshape(K, 2)[idx]
+    delta = lm - x[:2]
+    r = np.hypot(delta[:, 0], delta[:, 1])
+    b = np.mod(np.rad2deg(np.arctan2(delta[:, 1], delta[:, 0])) - x[2],
+               360.0)
+    if noise is not None:
+        r = r + rng.normal(0.0, noise[0], n)
+        b = np.mod(b + rng.normal(0.0, noise[1], n), 360.0)
+    return np.stack([r, b, (idx + 1).astype(np.float64)], axis=-1)
+
+
+def bench_batch(state: FilterState, zs: torch.Tensor, params: EKFParams
+                ) -> Tuple[FilterState, torch.Tensor]:
+    """One batch of the benchmark (bench.py:228-241): R = diag(z_r·rc0,
+    z_φ·rc1) per measurement, the gate (``gate_batch``), then
+    ``update_chunked`` of the measurements it associates.  P is updated
+    in place.  Returns the new state and the gate's slots."""
+    rc0, rc1 = params.rc
+    Rs = torch.diag_embed(torch.stack([zs[:, 0] * rc0, zs[:, 1] * rc1],
+                                      dim=-1)).to(params.dtype)
+    is_new, slots = gate_batch(state, zs, Rs, params,
+                               use_pallas=params.use_pallas)
+    return update_chunked(state, zs, slots, Rs, ~is_new, params), slots

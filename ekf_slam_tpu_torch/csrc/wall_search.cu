@@ -31,9 +31,10 @@
 //
 // Layout: points [B,2], the working masks (avail, inl), the NH trial
 // lines, trial_ok and the counts live in dynamic shared memory, with a
-// sort buffer of the next power of two ≥ B floats: 12·B + 4·P2 + 13·NH
-// bytes (with the 1,584 bytes of static scratch ≤ 227 KB: B up to 13,708
-// at NH = 64; the wrapper checks).
+// sort buffer of the next power of two ≥ B floats: 10·B + 4·P2 + 13·NH
+// bytes (points 8·B, sort keys 4·P2, lines 8·NH, counts 4·NH, avail B,
+// inl B, trial_ok NH; with the 1,584 bytes of static scratch ≤ 227 KB: B
+// up to 16,384 at NH = 64; the wrapper checks).
 // Point i is always handled by thread i mod 1024, so its mask bytes need
 // no barrier between the per-point passes; the sort and the scoring read
 // across threads and sit behind barriers.
@@ -517,20 +518,26 @@ wall_search_kernel(const float* __restrict__ points,
 extern "C" long long wall_search_smem(int B, int NH) {
   long long P2 = 2;
   while (P2 < B) P2 <<= 1;
-  return 12LL * B + 4LL * P2 + 13LL * NH;
+  return 10LL * B + 4LL * P2 + 13LL * NH;
 }
 
 // The most dynamic shared memory a launch on ``device`` may ask for: the
-// block's opt-in limit less the kernel's static scratch; −1 on an error.
+// block's opt-in limit less the kernel's static scratch; on a CUDA error
+// the error code, negated.
 extern "C" long long wall_search_smem_limit(int device) {
   int optin = 0;
   cudaFuncAttributes fa;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess ||
-      cudaFuncGetAttributes(&fa, wall_search_kernel) != cudaSuccess)
-    return -1;
+  cudaError_t e = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, wall_search_kernel);
+  if (e != cudaSuccess) return -static_cast<long long>(e);
   return static_cast<long long>(optin) -
          static_cast<long long>(fa.sharedSizeBytes);
+}
+
+// The name of a CUDA error code (cudaGetErrorName).
+extern "C" const char* wall_search_error_name(int err) {
+  return cudaGetErrorName(static_cast<cudaError_t>(err));
 }
 
 extern "C" int wall_search(const void* points, const void* valid,

@@ -2,8 +2,10 @@
 launch counters and the nvcc + ctypes loader.
 
 * ``syrk_downdate`` — P ← P − W·Wᵀ in place, lower-triangle tiles only,
-  mirrored from the same accumulator (csrc/syrk_downdate.cu; replaces
-  ekf_slam_tpu/ops/pallas/kernels.py ``syrk_downdate_pallas``).
+  mirrored from the same accumulator; bf16 on tensor cores (mma.sync,
+  persistent blocks streaming P), f32 on CUDA-core FMAs
+  (csrc/syrk_downdate.cu; replaces ekf_slam_tpu/ops/pallas/kernels.py
+  ``syrk_downdate_pallas``).
 * ``score_lines`` — RANSAC inlier counts of NH lines over B points
   (csrc/score_lines.cu; replaces ``score_lines_pallas``).
 * ``cov_update`` — P ← P − K·V in place, any shape, ragged edges masked
@@ -110,6 +112,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             fn.restype = ctypes.c_longlong
         lib.wall_search_smem.argtypes = [ci, ci]
         lib.wall_search_smem_limit.argtypes = [ci]
+        lib.wall_search_error_name.restype = ctypes.c_char_p
+        lib.wall_search_error_name.argtypes = [ci]
 
 
 def _digest(name: str, flags) -> str:
@@ -160,6 +164,11 @@ def _lib(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def library_path(name: str) -> Path:
+    """The built shared library of kernel ``name`` (built if need be)."""
+    return Path(_lib(name)._name)
+
+
 def _stream(device: torch.device) -> int:
     """Handle of PyTorch's current CUDA stream on ``device``: every launch
     goes there.  The launch itself is made under
@@ -196,7 +205,9 @@ _SYRK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def syrk_downdate(P: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """P ← P − W·Wᵀ IN PLACE (the JAX kernel aliases P to its output,
     kernels.py:350); returns P.  Any D and any rank R: the kernel masks
-    the ragged edge itself, so no padding of D or R is asked for."""
+    the ragged edge and zero-fills the last rank slab itself, so no
+    padding of D or R is asked for.  A bit-symmetric P stays
+    bit-symmetric."""
     _require(P.dim() == 2 and P.shape[0] == P.shape[1],
              f"P must be square, got {tuple(P.shape)}")
     _require(W.dim() == 2 and W.shape[0] == P.shape[0],
@@ -289,6 +300,21 @@ score_lines.launches = 0
 _smem_limit: Dict[int, int] = {}
 
 
+def _wall_search_limit(lib, dev: int) -> int:
+    """The most dynamic shared memory a ``wall_search`` launch on CUDA
+    device ``dev`` may ask for, cached per device.  A failed lookup raises
+    the CUDA error by name and caches nothing."""
+    if dev not in _smem_limit:
+        limit = lib.wall_search_smem_limit(dev)
+        if limit < 0:
+            name = lib.wall_search_error_name(-limit).decode()
+            raise RuntimeError(f"wall_search: the shared-memory limit of "
+                               f"cuda:{dev} could not be read: CUDA error "
+                               f"{-limit} ({name})")
+        _smem_limit[dev] = limit
+    return _smem_limit[dev]
+
+
 def wall_search(points: torch.Tensor, valid: torch.Tensor,
                 trial: torch.Tensor, trial_ok: torch.Tensor, params,
                 counts_out: Optional[torch.Tensor] = None,
@@ -301,8 +327,8 @@ def wall_search(points: torch.Tensor, valid: torch.Tensor,
 
     On CUDA: float32 points [B,2] and trial [NH,2], bool valid [B] and
     trial_ok [NH], all contiguous; any NH ≥ 1 and T ≥ 1, and B as far as
-    the block's shared memory holds (12·B + 4·P2 + 13·NH bytes, P2 the
-    next power of two ≥ B: B ≤ 13,708 at NH = 64 on an H100).
+    the block's shared memory holds (10·B + 4·P2 + 13·NH bytes, P2 the
+    next power of two ≥ B: B ≤ 16,384 at NH = 64 on an H100).
     Records for checks, where given: ``counts_out`` (int32 [T+1, NH]) gets
     in row r the counts that round r picks its winner from, in row T those
     after the last round; ``pools_out`` (bool [T, B]) the pool each round
@@ -352,12 +378,11 @@ def wall_search(points: torch.Tensor, valid: torch.Tensor,
     lib = _lib("wall_search")
     dev = points.device.index if points.device.index is not None \
         else torch.cuda.current_device()
-    if dev not in _smem_limit:
-        _smem_limit[dev] = lib.wall_search_smem_limit(dev)
+    limit = _wall_search_limit(lib, dev)
     smem = lib.wall_search_smem(B, NH)
-    _require(smem <= _smem_limit[dev],
+    _require(smem <= limit,
              f"wall_search at B={B}, NH={NH} needs {smem} bytes of shared "
-             f"memory, more than the {_smem_limit[dev]} a block has")
+             f"memory, more than the {limit} a block has")
     f32 = dict(dtype=torch.float32, device=points.device)
     lines = torch.empty((T, 2), **f32)
     ok = torch.empty((T,), dtype=torch.bool, device=points.device)

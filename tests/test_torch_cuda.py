@@ -18,7 +18,8 @@ import torch
 from ekf_slam_tpu_torch.checks import (bearing_gap_ulps, gate_case,
                                        gate_tolerance, pair_starts,
                                        recompress_qr_case, score_lines_case,
-                                       session_on_devices, wall_search_case,
+                                       session_on_devices, syrk_case,
+                                       syrk_compare, wall_search_case,
                                        wall_search_compare)
 from ekf_slam_tpu_torch.ops import gating as G
 from ekf_slam_tpu_torch.ops import kernels as K
@@ -60,6 +61,46 @@ def test_syrk_kernel_matches_plain(dev, D, R, dtype):
     eps = torch.finfo(dtype).eps
     err = (got.float() - want.float()).abs().max().item()
     assert err <= eps * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("D,R,dtype", [(20480, 1024, torch.bfloat16),
+                                       (2048, 1000, torch.bfloat16),
+                                       (1003, 1024, torch.bfloat16),
+                                       (1003, 2, torch.float32),
+                                       (2048, 1024, torch.float32)])
+def test_syrk_kernel_wide_rank_matches_plain(dev, D, R, dtype, exact):
+    """The ranks of the batched update (R = 1024 at the 10k schedule's
+    D = 20480; R = 1000, not a multiple of the rank slab; a ragged D),
+    and f32 at R = 2 and 1024: in place, bit-symmetric, within one bf16
+    ulp of |P|max or 1e-5 of |P|max in f32 of the plain version
+    (checks.syrk_compare), and bit-equal to it on integer inputs, where
+    every sum is exact."""
+    g = torch.Generator(device=dev).manual_seed(D + R)
+    P, W = syrk_case(g, D, R, dtype, exact)
+    want = K.syrk_downdate_ref(P, W)
+    pmax = P.float().abs().max().item()
+    ptr, before = P.data_ptr(), K.syrk_downdate.launches
+    got = K.syrk_downdate(P, W)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr
+    assert K.syrk_downdate.launches == before + 1
+    res = syrk_compare(got, want, pmax)
+    assert res["symmetric"]
+    assert res["n_diff"] == 0 if exact else res["ok"], res
+
+
+@pytest.mark.parametrize("D,R", [(128, 1024), (200, 48), (64, 16)])
+def test_syrk_kernel_diagonal_tiles_stay_bit_symmetric(dev, D, R):
+    """On a diagonal tile both (r, c) and (c, r) come from the one
+    accumulator element with r ≥ c: one diagonal tile (D = 128, 64) and a
+    ragged diagonal tile beside an off-diagonal pair (D = 200)."""
+    g = torch.Generator(device=dev).manual_seed(D * R)
+    P, W = syrk_case(g, D, R, torch.bfloat16)
+    want = K.syrk_downdate_ref(P, W)
+    pmax = P.float().abs().max().item()
+    res = syrk_compare(K.syrk_downdate(P, W), want, pmax)
+    assert res["symmetric"] and res["ok"], res
 
 
 def test_score_lines_kernel_matches_plain(dev):
@@ -360,11 +401,23 @@ def test_wall_search_kernel_matches_plain(dev, setting, seed, B, NH):
     assert res["compared"] and res["accepted"] > 0
 
 
+def test_wall_search_kernel_takes_the_largest_scan(dev):
+    """B = 16,384 points at NH = 64 fill a block's shared memory (the
+    layout takes 10·B + 4·P2 + 13·NH bytes): one launch, and the plain
+    version's counts, ok and pools of every round."""
+    args, params = wall_search_case(5, 16384, 64, "flagship", dev)
+    before = K.wall_search.launches
+    res = wall_search_compare(args, params, True)
+    assert K.wall_search.launches == before + 1
+    assert res["failures"] == [], res
+
+
 @pytest.mark.parametrize("which", ["float64", "strided", "too_many_points"])
 def test_wall_search_kernel_rejects_what_it_does_not_take(dev, which):
     """float64, a strided input, and more points than a block's shared
-    memory holds raise; nothing falls back to the plain version."""
-    B = 16384 if which == "too_many_points" else 256
+    memory holds (16,385 at NH = 64) raise; nothing falls back to the
+    plain version."""
+    B = 16385 if which == "too_many_points" else 256
     (pts, valid, trial, trial_ok), params = wall_search_case(
         0, B, 64, "flagship", dev)
     if which == "float64":

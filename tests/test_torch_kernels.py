@@ -381,3 +381,33 @@ def test_build_digest_covers_headers_and_flags(tmp_path, monkeypatch):
     assert all(after[n] != before[n] for n in before)
     for src in ("wall_search.cu", "score_lines.cu"):
         assert '#include "score_lines.cuh"' in (csrc / src).read_text()
+
+
+class _LimitStub:
+    """A wall_search library whose shared-memory limit lookup returns
+    ``value`` (the C function returns a CUDA error code negated)."""
+
+    def __init__(self, value):
+        self.value, self.calls = value, 0
+
+    def wall_search_smem_limit(self, dev):
+        self.calls += 1
+        return self.value
+
+    def wall_search_error_name(self, err):
+        return {1: b"cudaErrorInvalidValue"}.get(err, b"cudaErrorUnknown")
+
+
+def test_wall_search_limit_lookup_raises_and_caches_nothing(monkeypatch):
+    """A lookup that returns −1 raises the CUDA error by name and caches
+    nothing, so the next call asks again; a good limit is cached."""
+    monkeypatch.setattr(tk, "_smem_limit", {})
+    bad = _LimitStub(-1)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+            tk._wall_search_limit(bad, 3)
+    assert bad.calls == 2 and tk._smem_limit == {}
+    good = _LimitStub(230864)
+    assert tk._wall_search_limit(good, 3) == 230864
+    assert tk._wall_search_limit(good, 3) == 230864
+    assert good.calls == 1 and tk._smem_limit == {3: 230864}
