@@ -9,7 +9,10 @@ Phases (each prints one line; any failure exits non-zero with no result):
 1. build the seven CUDA kernels from ekf_slam_tpu_torch/csrc (one nvcc per
    source, started together), print the card's name and power limit, and
    count the tensor-core instructions (HMMA/HGMMA) in the SASS of K1's
-   bf16 kernel (`cuobjdump -sass`; more than 0, or the phase fails);
+   bf16 kernel and of K6's f32 (3xTF32) kernel (`cuobjdump -sass`; more
+   than 0 in each, or the phase fails); print K6's `-Xptxas -v` report
+   (registers, spills, shared memory of each of its kernels) and fail on
+   any spill;
 2. K1 syrk_downdate against its plain version (checks.syrk_case and
    syrk_compare): bf16 at (D, R) = (20480, 16), (20480, 1024), (2048,
    1000) and (1003, 1024), f32 at (1003, 16), (2048, 16), (1003, 2) and
@@ -40,15 +43,28 @@ Phases (each prints one line; any failure exits non-zero with no result):
    and D = 1003, f32 (in place, ≤ 1e-5 of |P|max), K5 pair_gather on f32
    and bf16 P with duplicate, unordered and last-row-pair starts
    (bit-equal to index_select) and with out-of-range starts (clamped),
-   K6 syrk_gram at D = R = 20067 f32, D = 1003 by R = 1500 f32, and bf16
-   and f64 at D = 517 (≤ 1e-5 of |G|max, 1e-12 at f64; bit-symmetric; the
-   accumulation dtype), each against its plain version;
+   K6 syrk_gram at the edge shapes of its f32 tiling (D in 1, 127, 128,
+   129 by R in 1, 3, 31, 33; inputs from numpy, checks.gram_dense_case),
+   D = R = 20067 f32, D = 1003 by R = 1500 f32, and bf16 and f64 at
+   D = 517 (≤ 1e-5 of |G|max, 1e-12 at f64; bit-symmetric; the
+   accumulation dtype), each against its plain version run on the CPU
+   (the gap to the card's is printed: at D = R = 20067 that is mostly
+   cuBLAS's own f32 error); each f32 case
+   also through checks.gram_compare (e against the f64 Gram within 4·m +
+   8·2⁻²³, m the largest e of the plain f32 Grams: the CPU's, the CPU's
+   with the columns permuted, the card's with allow_tf32 False), where
+   the single-TF32-pass control (checks.tf32_single_pass) must fail at
+   the edge shapes; at the dense D = R = 20067 the kernel's e must also be
+   ≤ 2 × the card's torch.matmul e (the control's e is printed); then a
+   banded S at D = R = 20067 (checks.gram_banded_case: ≤ 256 nonzero
+   terms a sum): the kernel passes gram_compare, the control fails;
 5. the session on the card against the same session on the CPU (the same
    draws), for the tuned path (rows + syrk) and the kernel path (rows,
    pair gather, fused gate, gemm correction through cov_update), capacity
    256, f32 P, 32 ticks, and for the square-root path (update_mode=
    'srekf_fast', pair gather, capacity 256, 80 ticks, a 16-column noise
-   buffer so five recompressions run): n_active equal every tick, pose
+   buffer so five recompressions run, each one K6 launch): n_active
+   equal every tick, pose
    within 1e-3 (m and degrees; on the square-root path's 80 ticks, m and
    radians, beside the CPU's own f32-against-f64 gap, since the extractor's
    f32 rounding of wall bearings moves the heading by ~1e-2 degrees); then
@@ -94,19 +110,22 @@ Phases (each prints one line; any failure exits non-zero with no result):
    3 + 2·10000 + 64 noise-buffer dims, unpadded) for 72 ticks, so the 64th
    recompresses, counters set to 0 just before and read just after:
    finite state, landmarks mapped, ATE < 0.5 m, one K5 and one
-   wall_search launch per tick and no K1, K2, K4, K6 or score_lines
-   launch, no host sync on an ordinary tick and exactly one on the
-   recompression tick, S lower triangular with its 64 buffer columns
-   exactly 0 after the recompression; the median ordinary tick, the
-   recompression tick and a torch.profiler line, whose device operations
-   per ordinary tick must be fewer than with the rounds as torch ops.
-   Then K6 on the factor
-   the recompression was handed: one launch, within 1e-5 of |S·Sᵀ|max,
-   bit-symmetric, and the blocked Cholesky of its Gram within 1e-3 of the
-   session's recompressed factor on the active block;
+   wall_search launch per tick, one K6 launch (the recompression's Gram)
+   and no K1, K2, K4 or score_lines launch, no host sync on an ordinary
+   tick and exactly one on the recompression tick, S lower triangular
+   with its 64 buffer columns exactly 0 after the recompression; the
+   median ordinary tick, the recompression tick (beside an earlier
+   run's with the plain Gram, a constant) and a torch.profiler line,
+   whose device operations per ordinary tick must be fewer than with the
+   rounds as torch ops.
+   Then K6 on the factor the recompression was handed: within 1e-5 of
+   |S·Sᵀ|max, bit-symmetric, through checks.gram_compare, where the
+   single-TF32-pass control must fail; and the session's recompressed
+   factor within 1e-3 of the blocked Cholesky of torch.matmul(S, S.T) on
+   the active block;
 8. the launch floor (a one-element add_ replayed 2000 times in one CUDA
    graph), then each kernel timed at its path's shapes (CUDA-graph
-   replays between CUDA events; K6, ~0.3 s a call, 3 calls between CUDA
+   replays between CUDA events; K6, ~0.1 s a call, 3 calls between CUDA
    events after one warm-up) beside its plain version, its library
    yardstick, its roofline bound (bytes or operations at the card's peak
    rates) and that bound raised to the launch floor, with its share of
@@ -115,8 +134,12 @@ Phases (each prints one line; any failure exits non-zero with no result):
    predecessor; wall_search at the flagship and large_world settings, as
    CUDA-graph replays (device time) and as eager calls (host clock around
    synchronised calls: what a tick pays), beside its plain version timed
-   both ways; and the blocked Cholesky and the whole recompression at
-   D = 20067.
+   both ways; K6 also on the dense S of phase 4 beside torch.matmul, and
+   (in the log only, a different function) a single-TF32-pass
+   torch.matmul with allow_tf32 True; the blocked Cholesky, and the whole
+   recompression at D = 20067 with K6 and with the plain Gram, in turns
+   (plain, K6, K6, plain): K6's recompression must be faster by at least
+   0.8 × (the library Gram's time − K6's).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  A kernel's `launches` in the JSON is its
@@ -125,11 +148,12 @@ count from its path's run.  K1's entry (R = 16, phase 6's count) also has
 phase 6c's timed and warm-up batches, its time beside the plain
 version's, torch.addmm's and its bound.  The parent kernel's times
 (K1_BEFORE_MS, constants from an earlier run) appear in the phase-8 log
-only, not in the JSON.  K6's is 0, since no session launches it, so
-its entry also has `on_path: false` and `side_call_launches`, the launch
-on the recompression's factor in phase 7b; so has score_lines's, whose
-scoring now runs inside wall_search on every path (its side calls are
-phase 3's).  Every entry also has
+only, not in the JSON, as are the earlier K6's time and K6's f32 CUDA-core
+bound (K6's `bound_ms` is by 3xTF32 operations at the TF32 rate).  K6's
+`launches` is phase 7b's count, with `on_path: true`.  score_lines's
+entry has `on_path: false` and `side_call_launches`, since its scoring
+now runs inside wall_search on every path (its side calls are phase
+3's).  Every entry also has
 `launch_floor_ms`, `floor_bound_ms` and `floor_bound_by` ("launch" where
 the floor is the larger): the bound raised to the launch floor, beside
 `bound_ms`.  This script imports nothing of JAX or of ekf_slam_tpu.
@@ -152,6 +176,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # rate, float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 
 # the kernel path's device operations per tick when its gate kernel was
@@ -165,6 +190,11 @@ OPS_BEFORE_WALL_SEARCH = dict(tuned=2069, kernel=1634, srekf_fast=2094)
 # at D = 20480 bf16, by rank: phase 8 on NVIDIA H100 80GB HBM3, 700.00 W
 # (PERF.md §6)
 K1_BEFORE_MS = {16: 0.9956, 1024: 20.0199}
+# the parent's K6 (f32 FMAs on CUDA cores) on the recompression's factor,
+# and the recompression tick with the plain Gram: phase 8 and 7b on NVIDIA
+# H100 80GB HBM3, 700.00 W (PERF.md §5-6)
+K6_BEFORE_MS = 289.8155
+RECOMPRESSION_TICK_BEFORE_MS = 452.857
 
 # device symbols of the port's kernels, as torch.profiler names them
 KERNEL_SYMBOLS = ("syrk_downdate_kernel", "gate_costs_kernel",
@@ -289,6 +319,25 @@ def sass_mma_counts(path):
                          text=True, timeout=300, check=True).stdout
     return {chunk.split()[0]: len(re.findall(r"\bHG?MMA\b", chunk))
             for chunk in out.split("Function : ")[1:]}
+
+
+def ptxas_report(text):
+    """Each kernel's figures from nvcc's `-Xptxas -v` output: {symbol:
+    dict(registers, stack, spill_stores, spill_loads, smem)}, None where
+    a figure is missing (dynamic shared memory is not in the report)."""
+    out = {}
+    for chunk in text.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", chunk)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", chunk)
+        smem = re.search(r"(\d+) bytes smem", chunk)
+        out[chunk.split("'")[0]] = dict(
+            registers=int(regs[1]) if regs else None,
+            stack=int(frame[1]) if frame else None,
+            spill_stores=int(frame[2]) if frame else None,
+            spill_loads=int(frame[3]) if frame else None,
+            smem=int(smem[1]) if smem else 0)
+    return out
 
 
 def profile_device(torch, body, n, unit):
@@ -442,14 +491,20 @@ def main():
     check(os.path.dirname(os.path.dirname(os.path.abspath(tp.__file__)))
           == HERE, f"ekf_slam_tpu_torch resolved outside {HERE}")
     from ekf_slam_tpu_torch import session as session_mod
+    from ekf_slam_tpu_torch.models import srekf_fast as srekf_fast_mod
     from ekf_slam_tpu_torch.checks import (bearing_gap_ulps, bench_batch,
                                            bench_params, bf16_ulps,
+                                           full_f32_matmul,
                                            full_measurements, full_state,
                                            gate_case, gate_tolerance,
+                                           gram_banded_case, gram_compare,
+                                           gram_dense_case,
+                                           gram_plain_errors,
                                            pair_starts, recompress_qr_case,
                                            record_syrk, score_lines_case,
                                            session_on_devices, syrk_case,
                                            syrk_compare, syrk_gap_bound,
+                                           tf32_single_pass,
                                            wall_search_case,
                                            wall_search_compare)
     from ekf_slam_tpu_torch.ops.ransac import wall_search_ref
@@ -480,6 +535,21 @@ def main():
           f"K1's bf16 kernel has no HMMA/HGMMA instruction: {mma}")
     log(f"phase 1 K1 SASS ok: tensor-core instructions (HMMA/HGMMA) per "
         f"kernel {mma}")
+    mma6 = sass_mma_counts(K.library_path("syrk_gram"))
+    mma_tf32 = {k: v for k, v in mma6.items() if "syrk_gram_kernel_tf32" in k}
+    check(len(mma_tf32) == 1 and min(mma_tf32.values()) > 0,
+          f"K6's f32 kernel has no HMMA/HGMMA instruction: {mma6}")
+    ptx6 = ptxas_report(K.build_log("syrk_gram"))
+    ptx_tf32 = [v for k, v in ptx6.items() if "syrk_gram_kernel_tf32" in k]
+    check(len(ptx6) == 3 and len(ptx_tf32) == 1
+          and ptx_tf32[0]["registers"] is not None,
+          f"K6's -Xptxas -v report lacks its kernels: "
+          f"{K.build_log('syrk_gram')}")
+    check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0
+              for v in ptx6.values()), f"K6 spills registers: {ptx6}")
+    log(f"phase 1 K6 SASS ok: HMMA/HGMMA per kernel {mma6}; -Xptxas -v "
+        f"(the f32 kernel's 110,592-byte ring is dynamic shared memory, "
+        f"not in the report): {ptx6}")
 
     # -- 2. K1 against its plain version ----------------------------------------
     # each case random (within one rounding of the storage type) and exact
@@ -660,28 +730,102 @@ def main():
         del P4, Kg, V, ref, out
     log(f"phase 4 K5 D={D5} ok: f32 and bf16, int64 and int32 starts, "
         "bit-equal to index_select; out-of-range starts clamped")
-    for D6, R6, dt6 in ((20067, 20067, torch.float32),
-                        (1003, 1500, torch.float32),
-                        (517, 517, torch.bfloat16),
-                        (517, 517, torch.float64)):
+    # K6: f32 (3xTF32 on the tensor cores) at the edge shapes of its tiles
+    # and slabs, from numpy, and at the existing shapes; bf16 and f64
+    edge6 = [(D, R) for D in (1, 127, 128, 129) for R in (1, 3, 31, 33)]
+    notes6 = []
+    for D6, R6, dt6 in ([(D, R, torch.float32) for D, R in edge6]
+                        + [(20067, 20067, torch.float32),
+                           (1003, 1500, torch.float32),
+                           (517, 517, torch.bfloat16),
+                           (517, 517, torch.float64)]):
         wide = dt6 == torch.float64
-        S6 = torch.randn((D6, R6), generator=g, device=dev,
-                         dtype=torch.float64 if wide else torch.float32
-                         ).to(dt6)
-        ref = K.syrk_gram_ref(S6)
+        edge = (D6, R6) in edge6
+        if edge:
+            S6 = gram_dense_case(D6, R6).to(dev)
+        else:
+            S6 = torch.randn((D6, R6), generator=g, device=dev,
+                             dtype=torch.float64 if wide else torch.float32
+                             ).to(dt6)
+        # the plain version on the CPU, whose f32 sums are accurate: at
+        # D = R = 20067 the card's (cuBLAS) is itself ~1e-5 of |G|max off
+        # the f64 Gram, so against it the gap would be cuBLAS's error
+        ref = K.syrk_gram_ref(S6.cpu())
         got = K.syrk_gram(S6, use_pallas=True)
         torch.cuda.synchronize()
         check(got.dtype == ref.dtype == (torch.float64 if wide
                                          else torch.float32),
               f"K6 {dt6} gave {got.dtype}, plain {ref.dtype}")
-        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        rel = ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+        del ref
+        ref_card = K.syrk_gram_ref(S6)
+        rel_card = ((got - ref_card).abs().max()
+                    / ref_card.abs().max()).item()
+        del ref_card
         tol = 1e-12 if wide else 1e-5
-        check(rel <= tol, f"K6 D={D6} R={R6} {dt6} relative error {rel} "
-              f"> {tol}")
-        check(torch.equal(got, got.T), f"K6 D={D6} {dt6} not bit-symmetric")
-        log(f"phase 4 K6 D={D6} R={R6} {str(dt6)[6:]} ok: relative error "
-            f"{rel:.3e} of |G|max, bit-symmetric, {str(got.dtype)[6:]} out")
-        del S6, ref, got
+        label = f"K6 D={D6} R={R6} {str(dt6)[6:]}"
+        check(rel <= tol, f"{label} relative error {rel} > {tol} against "
+              f"the plain version on the CPU (on the card {rel_card})")
+        check(torch.equal(got, got.T), f"{label} not bit-symmetric")
+        line = (f"relative error {rel:.3e} of |G|max against the plain "
+                f"version on the CPU ({rel_card:.3e} against it on the "
+                f"card), bit-symmetric, {str(got.dtype)[6:]} out")
+        if dt6 == torch.float32:
+            plain6 = gram_plain_errors(S6)
+            res = gram_compare(got, S6, plain6)
+            del got
+            ctrl = gram_compare(tf32_single_pass(S6), S6, plain6)
+            check(res["ok"], f"{label} gram_compare: e {res['err']:.3e} > "
+                  f"limit {res['limit']:.3e} (plain f32 Grams' e {plain6})")
+            check(not (edge and ctrl["ok"]),
+                  f"{label}: the single-TF32-pass control passed "
+                  f"gram_compare (e {ctrl['err']:.3e}, limit "
+                  f"{ctrl['limit']:.3e})")
+            line += (f"; gram_compare e {res['err']:.3e} (limit "
+                     f"{res['limit']:.3e}; plain f32 Grams' e "
+                     + ", ".join(f"{k} {v:.3e}" for k, v in plain6.items())
+                     + f"; the one-TF32-pass control {ctrl['err']:.3e}, "
+                     f"{'fails' if not ctrl['ok'] else 'passes'})")
+            if (D6, R6) == (20067, 20067):
+                check(res["err"] <= 2 * plain6["card"],
+                      f"{label}: e {res['err']:.3e} > 2 × the card's "
+                      f"torch.matmul e {plain6['card']:.3e}")
+                line += (f"; dense criterion: e ≤ 2 × the card's "
+                         f"torch.matmul e {plain6['card']:.3e} "
+                         f"(allow_tf32 False)")
+        else:
+            del got
+        if edge:
+            notes6.append(f"({D6},{R6}) e {res['err']:.2e}/limit "
+                          f"{res['limit']:.2e}, control {ctrl['err']:.2e}")
+        else:
+            log(f"phase 4 {label} ok: {line}")
+        del S6
+    log(f"phase 4 K6 edge shapes f32 ok: each within 1e-5 of |G|max of "
+        f"the plain version, bit-symmetric, through gram_compare, the "
+        f"single-TF32-pass control failing it at every one: "
+        + "; ".join(notes6))
+    # a banded S at the full shape: every tile pair runs, no sum has more
+    # than 256 nonzero terms, so the f32 Grams' accumulation error is
+    # small and one TF32 pass must show
+    Sb = gram_banded_case(g, 20067)
+    Gb = K.syrk_gram(Sb, use_pallas=True)
+    torch.cuda.synchronize()
+    check(torch.equal(Gb, Gb.T), "K6 banded: not bit-symmetric")
+    plain_b = gram_plain_errors(Sb)
+    res_b = gram_compare(Gb, Sb, plain_b)
+    del Gb
+    ctrl_b = gram_compare(tf32_single_pass(Sb), Sb, plain_b)
+    check(res_b["ok"], f"K6 banded: e {res_b['err']:.3e} > limit "
+          f"{res_b['limit']:.3e} (plain f32 Grams' e {plain_b})")
+    check(not ctrl_b["ok"], f"K6 banded: the single-TF32-pass control "
+          f"passed (e {ctrl_b['err']:.3e}, limit {ctrl_b['limit']:.3e})")
+    log(f"phase 4 K6 banded D=R=20067 f32 (≤ 256 nonzero terms a sum) ok: "
+        f"bit-symmetric, gram_compare e {res_b['err']:.3e} (limit "
+        f"{res_b['limit']:.3e}; plain f32 Grams' e "
+        + ", ".join(f"{k} {v:.3e}" for k, v in plain_b.items())
+        + f"); the one-TF32-pass control e {ctrl_b['err']:.3e} fails")
+    del Sb
     torch.cuda.empty_cache()
 
     # -- 5. the session, card against CPU ---------------------------------------
@@ -704,6 +848,8 @@ def main():
         outs4 = session_on_devices(ep4, rp4, T4, 1024, ("cuda", "cpu"))
         got4 = {k: fn.launches for k, fn in counted.items()}
         want4 = {k: T4 if k in ours else 0 for k in got4}
+        if path == "srekf_fast":        # one K6 launch a recompression
+            want4["syrk_gram"] = T4 // ep4.sr_noise_buffer
         check(got4 == want4, f"{path} path on the card launched {got4}, "
               f"expected {want4}")
         na_c, na_h = outs4["cuda"].n_active.cpu(), outs4["cpu"].n_active
@@ -734,7 +880,8 @@ def main():
               f"(worst tick {worst}); the CPU's f32 run differs from its "
               f"f64 run by {fpos} m, {fhead} rad (tick {fworst})")
         log(f"phase 5 {path} path card vs CPU ok: {T4} ticks, capacity 256, "
-            f"buffer {ep4.sr_noise_buffer}, n_active equal (final "
+            f"buffer {ep4.sr_noise_buffer}, card launches {got4}, "
+            f"n_active equal (final "
             f"{int(na_h[-1])}), max position diff {dpos:.3e} m, heading "
             f"{dhead:.3e} rad ({math.degrees(dhead):.3e} deg, tick {worst}); "
             f"the CPU's f32 run against its f64 run: {fpos:.3e} m, "
@@ -1038,7 +1185,7 @@ def main():
     check(ate9 < 0.5, f"square-root path ATE {ate9} m")
     expect9 = dict(syrk_downdate=0, gate_costs=0, score_lines=0,
                    wall_search=T_SR, cov_update=0, pair_gather=T_SR,
-                   syrk_gram=0)
+                   syrk_gram=T_SR // B9)
     check(launches9 == expect9,
           f"square-root path launches {launches9}, expected {expect9}")
     n_sync = [len(x) for x in syncs9]
@@ -1057,7 +1204,9 @@ def main():
         f"recompression tick ({syncs9[rec]}), S lower triangular with its "
         f"buffer columns 0 after it; ordinary tick median "
         f"{statistics.median(ordinary):.3f} ms, recompression tick "
-        f"{tick9[rec]:.3f} ms (CUDA events)")
+        f"{tick9[rec]:.3f} ms (CUDA events; with the plain Gram "
+        f"{RECOMPRESSION_TICK_BEFORE_MS} ms, a constant from an earlier "
+        f"run, PERF.md §5)")
     prof9, ops9 = profile_ticks(torch, sess9, carry9, traj, T_SR, T_PROF)
     log(f"phase 7b profile: {prof9}")
     check(ops9 is not None and ops9 < OPS_BEFORE_WALL_SEARCH["srekf_fast"],
@@ -1070,35 +1219,45 @@ def main():
     del carry9, filt9, outs9, sess9
     torch.cuda.empty_cache()
 
-    # K6 on the factor the recompression was handed: the recompression's
-    # Gram through the kernel, counters set to 0 just before and read
-    # just after, then the Cholesky the recompression runs
+    # K6 on the factor the recompression was handed (a comparison launch,
+    # after the path's counts were read): its Gram against the plain
+    # versions and the f64 Gram, the control, and the session's factor
+    # against the Cholesky of the library Gram
     S_h, na_h, L_sess = handed["S"], handed["n_active"], handed.pop("L")
-    for fn in counted.values():
-        fn.launches = 0
     G6 = K.syrk_gram(S_h, use_pallas=True)
-    L6 = chol_for_state(G6, na_h)
-    torch.cuda.synchronize()
-    launches_k6 = {name: fn.launches for name, fn in counted.items()}
-    check(launches_k6 == {k: int(k == "syrk_gram") for k in counted},
-          f"the Gram through K6 launched {launches_k6}")
-    G_lib = torch.matmul(S_h, S_h.T)
+    with full_f32_matmul():
+        G_lib = torch.matmul(S_h, S_h.T)
     err_k6 = (G6 - G_lib).abs().max().item()
     rel6 = err_k6 / G_lib.abs().max().item()
     check(rel6 <= 1e-5, f"K6 on the path: relative error {rel6} > 1e-5")
     check(torch.equal(G6, G6.T), "K6 on the path: G not bit-symmetric")
+    plain_h = gram_plain_errors(S_h)
+    res_h = gram_compare(G6, S_h, plain_h)
+    ctrl_h = gram_compare(tf32_single_pass(S_h), S_h, plain_h)
+    check(res_h["ok"], f"K6 on the handed factor: e {res_h['err']:.3e} > "
+          f"limit {res_h['limit']:.3e} (plain f32 Grams' e {plain_h})")
+    check(not ctrl_h["ok"], f"the single-TF32-pass control passed on the "
+          f"handed factor (e {ctrl_h['err']:.3e}, limit "
+          f"{ctrl_h['limit']:.3e})")
+    L_lib = chol_for_state(G_lib, na_h)
     del G_lib
     d_act = 3 + 2 * int(na_h.item())
-    Ls, Lk = L_sess[:d_act, :d_act], L6[:d_act, :d_act]
-    rel_l = ((Lk - Ls).abs().max() / Ls.abs().max()).item()
-    check(rel_l <= 1e-3, f"Cholesky of K6's Gram differs from the "
-          f"session's factor by {rel_l} of its largest entry")
-    log(f"phase 7b K6 on the path ok: S ({D9}, {D9}) f32 as handed to the "
-        f"recompression, launches {launches_k6}, relative error "
-        f"{rel6:.3e} of |S·Sᵀ|max, bit-symmetric; the Cholesky of its Gram "
-        f"is within {rel_l:.3e} of the session's factor on the active "
-        f"{d_act}×{d_act} block")
-    del L6, L_sess
+    Ls, Ll = L_sess[:d_act, :d_act], L_lib[:d_act, :d_act]
+    rel_l = ((Ls - Ll).abs().max() / Ll.abs().max()).item()
+    check(rel_l <= 1e-3, f"the session's recompressed factor differs from "
+          f"the Cholesky of torch.matmul(S, S.T) by {rel_l} of its largest "
+          f"entry")
+    n_zero = int((S_h == 0).all(dim=1).sum())
+    log(f"phase 7b K6 on the handed factor ok: S ({D9}, {D9}) f32, "
+        f"{n_zero} zero rows; relative error {rel6:.3e} of |S·Sᵀ|max "
+        f"against torch.matmul, bit-symmetric; gram_compare e "
+        f"{res_h['err']:.3e} (limit {res_h['limit']:.3e}; plain f32 Grams' "
+        f"e " + ", ".join(f"{k} {v:.3e}" for k, v in plain_h.items())
+        + f"); the one-TF32-pass control e {ctrl_h['err']:.3e} fails; the "
+        f"session's factor (K6 on its path) is within {rel_l:.3e} of the "
+        f"Cholesky of torch.matmul(S, S.T) on the active {d_act}×{d_act} "
+        f"block")
+    del L_lib, L_sess
 
     # -- 8. the launch floor and the kernel timings at the paths' shapes ------
     # the launch floor: a one-element add_ replayed N times in one CUDA
@@ -1235,28 +1394,58 @@ def main():
     del P7
 
     # K6 on the factor the recompression was handed; its lower half is
-    # D(D+1)/2 dot products of length R = D
+    # D(D+1)/2 dot products of length R = D, each product three TF32 ones
+    ops6 = D9 * (D9 + 1) * D9              # 2 flops per multiply-add
     entry("syrk_gram", "syrk_gram.cu",
           "ekf_slam_tpu/ops/pallas/kernels.py:413",
           launches9["syrk_gram"], err_k6,
           event_ms(torch, lambda: K.syrk_gram(S_h, use_pallas=True)),
           event_ms(torch, lambda: K.syrk_gram_ref(S_h)),
           D9 * D9 * 4 + D9 * D9 * 4,       # read S, write G
-          D9 * (D9 + 1) * D9,              # 2 flops per multiply-add
-          F32_FLOPS,
+          3 * ops6, TF32_FLOPS,
           event_ms(torch, lambda: torch.matmul(S_h, S_h.T)))
-    # no session launches K6 (the recompression takes the plain Gram, as
-    # the JAX default does): its one launch is the call on the factor above
-    kernels["syrk_gram"].update(on_path=False,
-                                side_call_launches=launches_k6["syrk_gram"])
+    kernels["syrk_gram"]["on_path"] = True
+    k6 = kernels["syrk_gram"]
+    # the same on a dense S of phase 4's shape; and cuBLAS's single TF32
+    # pass, a different function (one TF32 product, not f32-accurate),
+    # for the tensor-core rate cuBLAS reaches
+    Sd = torch.randn((D9, D9), generator=g, device=dev)
+    k6_dense = event_ms(torch, lambda: K.syrk_gram(Sd, use_pallas=True))
+    lib_dense = event_ms(torch, lambda: torch.matmul(Sd, Sd.T))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_dense = event_ms(torch, lambda: torch.matmul(Sd, Sd.T))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    del Sd
     chol_ms = event_ms(torch, lambda: chol_for_state(G6, na_h))
+    del G6
     state_h = FilterState(
         x=torch.zeros((D9,), device=dev), P=S_h,
         sig=torch.zeros((ep9.capacity,), device=dev),
         active=torch.zeros((ep9.capacity,), dtype=torch.bool, device=dev),
         n_active=na_h)
-    rec_ms = event_ms(torch, lambda: real_recompress(state_h))
-    del G6, S_h, state_h
+
+    def recompress_plain_gram():
+        # the recompression with the flag-less, plain Gram
+        srekf_fast_mod.syrk_gram = lambda S, use_pallas=None: K.syrk_gram(S)
+        try:
+            return real_recompress(state_h)
+        finally:
+            srekf_fast_mod.syrk_gram = K.syrk_gram
+
+    rec_runs = {"plain": [], "K6": []}
+    for which in ("plain", "K6", "K6", "plain"):
+        rec_runs[which].append(event_ms(
+            torch, recompress_plain_gram if which == "plain"
+            else lambda: real_recompress(state_h), iters=2))
+    rec_ms = statistics.mean(rec_runs["K6"])
+    rec_plain_ms = statistics.mean(rec_runs["plain"])
+    del S_h, state_h
+    check(rec_plain_ms - rec_ms >= 0.8 * (k6["library_ms"] - k6["ms"]),
+          f"the recompression with K6 ({rec_runs['K6']} ms) is not faster "
+          f"than with the plain Gram ({rec_runs['plain']} ms) by 0.8 × "
+          f"(torch.matmul {k6['library_ms']:.3f} − K6 {k6['ms']:.3f} ms)")
     for name, k in kernels.items():
         log(f"phase 8 {name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.6f} by "
@@ -1291,10 +1480,30 @@ def main():
         f"launch with its bearing strip before it (PERF.md §6); the torch "
         f"ops that fed that launch (strips, R diagonal, bearing strip) take "
         f"{feed_ms:.4f} ms here")
+    log(f"phase 8 syrk_gram at D=R={D9} f32: {k6['ms']:.4f} ms on the "
+        f"handed factor, {k6_dense:.4f} ms on a dense S; "
+        f"{100 * k6['bound_ms'] / k6['ms']:.1f}% of its 3xTF32 bound "
+        f"{k6['bound_ms']:.2f} ms ({3 * ops6:.4g} FLOP at 495 TFLOP/s), "
+        f"{100 * ops6 / F32_FLOPS * 1e3 / k6['ms']:.1f}% of its f32 "
+        f"CUDA-core bound {ops6 / F32_FLOPS * 1e3:.2f} ms (67 TFLOP/s); "
+        f"torch.matmul(S, S.T) {k6['library_ms']:.4f} ms on the handed "
+        f"factor ({k6['ms'] / k6['library_ms']:.3f}x of it), {lib_dense:.4f}"
+        f" ms on the dense S ({k6_dense / lib_dense:.3f}x); the parent's "
+        f"K6 (f32 FMAs on CUDA cores) {K6_BEFORE_MS} ms, a constant from an "
+        f"earlier run; card: {card}")
+    log(f"phase 8 a different function, for the rate only: torch.matmul "
+        f"with allow_tf32 True (one TF32 pass, not f32-accurate) on the "
+        f"dense S {tf32_dense:.4f} ms, "
+        f"{100 * 2 * D9 ** 3 / TF32_FLOPS * 1e3 / tf32_dense:.1f}% of the "
+        f"TF32 rate for its {2 * D9 ** 3:.4g} FLOP (the full product)")
     log(f"phase 8 square-root recompression at D={D9} f32: the blocked "
-        f"Cholesky (chol_for_state) {chol_ms:.3f} ms, the whole "
-        f"sr_recompress (plain Gram + Cholesky + one host read) "
-        f"{rec_ms:.3f} ms")
+        f"Cholesky (chol_for_state) {chol_ms:.3f} ms; the whole "
+        f"sr_recompress (Gram + Cholesky + one host read) with K6 (its "
+        f"path) {rec_ms:.3f} ms, with the plain Gram {rec_plain_ms:.3f} ms "
+        f"(in turns, plain, K6, K6, plain: {rec_runs}): "
+        f"{rec_plain_ms - rec_ms:.3f} ms faster, against 0.8 × "
+        f"(torch.matmul − K6) = "
+        f"{0.8 * (k6['library_ms'] - k6['ms']):.3f} ms")
 
     print(json.dumps({"kernels": [dict(name=n, **k)
                                   for n, k in kernels.items()]}))

@@ -1,8 +1,9 @@
 """Inputs and runs shared by the port's on-card checks (``chip_smoke.py``
 and ``tests/test_torch_cuda.py``): the K3 scoring case, the wall-search
 case and its comparison with the plain version, the K2 gating case and
-the tolerance of its in-kernel bearing, the K5 pair starts, the
-square-root recompression's QR branch, one session run on several
+the tolerance of its in-kernel bearing, the K5 pair starts, the K6
+Gram's precision check against the f64 Gram, the square-root
+recompression's QR branch, one session run on several
 devices with the same inputs, and the JAX package's batched-update
 benchmark (bench.py) as the port runs it: its parameters, full state,
 measurements and one gate + update batch.  Each caller keeps its own
@@ -141,6 +142,117 @@ def record_syrk():
         yield calls
     finally:
         _batched.syrk_downdate = inner
+
+
+def tf32_round(S: torch.Tensor) -> torch.Tensor:
+    """S as f32, each element rounded to TF32 (10 stored mantissa bits) to
+    nearest with ties away from zero, by bit operations on its f32 bits:
+    (bits + 0x1000) & 0xFFFFE000 (exact for finite S)."""
+    b = S.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Within the block an f32 ``torch.matmul`` on CUDA runs in full f32:
+    ``torch.backends.cuda.matmul.allow_tf32`` is set False and restored
+    after."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def tf32_single_pass(S: torch.Tensor) -> torch.Tensor:
+    """The precision control of the Gram: S rounded to TF32
+    (``tf32_round``), then an f32 ``torch.matmul`` of it with its
+    transpose (``allow_tf32`` False): the products are exact in f32, so
+    this is what one TF32 MMA pass forms, on S's device."""
+    A = tf32_round(S)
+    with full_f32_matmul():
+        return torch.matmul(A, A.T)
+
+
+def gram_dense_case(D: int, R: int, seed: int = 0) -> torch.Tensor:
+    """S [D, R] f32 on the CPU, standard normal entries drawn by numpy from
+    ``seed``, D and R (the same on every machine)."""
+    rng = np.random.default_rng((seed, D, R))
+    return torch.from_numpy(rng.standard_normal((D, R), dtype=np.float32))
+
+
+def gram_banded_case(g: torch.Generator, D: int, width: int = 256
+                     ) -> torch.Tensor:
+    """S [D, D] f32 on ``g``'s device, lower triangular with standard
+    normal entries within ``width`` of the diagonal (S_ij for
+    i − width < j ≤ i) and 0 elsewhere: every tile pair of the Gram runs,
+    but no sum has more than ``width`` nonzero terms, so the accumulation
+    error of an f32 Gram is small."""
+    S = torch.randn((D, D), generator=g, device=g.device)
+    return S.tril_().triu_(1 - width)
+
+
+def _gram_errors(S: torch.Tensor, Gs: Iterable[torch.Tensor],
+                block: int = 2048) -> list:
+    """``gram_error`` of each G in ``Gs`` (on any device) against one f64
+    Gram of S, formed on S's device ``block`` rows at a time."""
+    Gs = list(Gs)
+    S64 = S.to(torch.float64)
+    d = (S64 * S64).sum(dim=1)                      # G64's diagonal
+    errs = [0.0] * len(Gs)
+    for i0 in range(0, S64.shape[0], block):
+        i1 = min(i0 + block, S64.shape[0])
+        ref = S64[i0:i1] @ S64.T
+        scale = torch.sqrt(d[i0:i1, None] * d[None, :])
+        zero = scale == 0
+        scale[zero] = 1.0
+        for n, G in enumerate(Gs):
+            Gb = G[i0:i1].to(S.device, torch.float64)
+            if bool((Gb[zero] != 0).any()):
+                errs[n] = math.inf
+                continue
+            e = torch.nan_to_num((Gb - ref).abs_().div_(scale),
+                                 nan=math.inf).max().item()
+            errs[n] = max(errs[n], e)
+            del Gb
+    return errs
+
+
+def gram_error(G: torch.Tensor, S: torch.Tensor) -> float:
+    """e(G) = max over i, j of |G_ij − G64_ij| / √(G64_ii·G64_jj), G64
+    the f64 Gram of S: on the diagonal the relative error the Cholesky
+    sees.  Where G64_ii·G64_jj = 0 (a zero row of S) G_ij must be exactly
+    0, or e is infinite; a NaN in G counts as infinite."""
+    return _gram_errors(S, [G])[0]
+
+
+def gram_plain_errors(S: torch.Tensor, seed: int = 0) -> Dict[str, float]:
+    """e of the plain f32 Grams of S: the CPU's ``torch.matmul`` ('cpu'),
+    the same with S's contraction columns permuted by ``seed`` (a
+    different order of every sum, 'cpu_permuted') and, for S on CUDA, the
+    card's ``torch.matmul`` in full f32 ('card', ``allow_tf32`` False)."""
+    Sh = S.detach().to("cpu", torch.float32)
+    perm = torch.randperm(Sh.shape[1],
+                          generator=torch.Generator().manual_seed(seed))
+    Sp = Sh[:, perm]
+    Gs = {"cpu": Sh @ Sh.T, "cpu_permuted": Sp @ Sp.T}
+    del Sp
+    if S.device.type == "cuda":
+        with full_f32_matmul():
+            Gs["card"] = torch.matmul(S, S.T)
+    return dict(zip(Gs, _gram_errors(S, Gs.values())))
+
+
+def gram_compare(G: torch.Tensor, S: torch.Tensor,
+                 plain_errors: Dict[str, float]) -> Dict[str, object]:
+    """A Gram of S (the kernel's, or a stand-in) against the f64 Gram:
+    its e (``gram_error``), the limit 4·m + 8·2⁻²³, m the largest e of the
+    plain f32 Grams of the same S (``gram_plain_errors``), and whether e
+    is within it."""
+    err = gram_error(G, S)
+    lim = 4 * max(plain_errors.values()) + 8 * 2.0 ** -23
+    return dict(err=err, limit=lim, ok=err <= lim)
 
 
 def score_lines_case(g: torch.Generator, NH: int, B: int, thresh: float

@@ -173,9 +173,15 @@ def sr_predict_fast(state: FilterState, u: torch.Tensor, params: EKFParams,
 
 def sr_recompress(state: FilterState) -> FilterState:
     """General factor → fresh lower-triangular factor of the same P
-    (srekf_fast.py:249-285): the Gram P = S·Sᵀ as the plain product (the
-    JAX default's ``syrk_gram`` without its flag), then the blocked
-    Cholesky.  Zeroes every inactive and buffer column.
+    (srekf_fast.py:249-285): the Gram P = S·Sᵀ, then the blocked Cholesky.
+    Zeroes every inactive and buffer column.
+
+    The Gram is ``syrk_gram(S, use_pallas=True)``: on a CUDA tensor one
+    launch of the Gram kernel (K6; f32 S as three TF32 products on the
+    tensor cores), on a CPU tensor its plain version, the product the JAX
+    default leaves to XLA.  The JAX package keeps the plain product
+    because its Pallas Gram lost to XLA's on the TPU; on the H100 the
+    kernel is faster than ``torch.matmul(S, S.T)``.
 
     Forming the Gram squares the condition number; where the Cholesky
     fails (NaN on its diagonal) the factor is instead re-triangularized
@@ -186,7 +192,7 @@ def sr_recompress(state: FilterState) -> FilterState:
     it is false."""
     S = state.P
     D = S.shape[0]
-    G = syrk_gram(S).to(S.dtype)
+    G = syrk_gram(S, use_pallas=True).to(S.dtype)
     L = chol_for_state(G, state.n_active)
     del G
     if not bool(torch.isfinite(torch.diagonal(L)).all()):    # 1 host read

@@ -13,7 +13,9 @@ launch counters and the nvcc + ctypes loader.
 * ``pair_gather`` — out[2i:2i+2] = P[starts[i]:starts[i]+2], starts read
   on the device (csrc/pair_gather.cu; replaces ``pair_gather_pallas``).
 * ``syrk_gram`` — G = S·Sᵀ from the lower tile pairs, each mirrored from
-  the same registers (csrc/syrk_gram.cu; replaces ``syrk_gram_pallas``).
+  the same registers; f32 on tensor cores as three TF32 products
+  (3xTF32, ``mma.sync``), bf16 and f64 on CUDA-core FMAs
+  (csrc/syrk_gram.cu; replaces ``syrk_gram_pallas``).
 * ``wall_search`` — the batched RANSAC wall search: the initial scoring
   and every greedy round of ``ransac.find_walls_batched`` in one launch of
   one thread block (csrc/wall_search.cu; replaces the 1 + T
@@ -34,7 +36,9 @@ together, for ``sm_90a`` into ``build/torch_kernels/`` at the repository
 root (file names carry a hash of the source, so an edited source
 rebuilds, as do an edited header of ``csrc/`` and changed flags), and
 loaded with ctypes: a plain C interface, no PyTorch
-headers.  Each launch goes on the tensor's current CUDA stream; the C
+headers.  What nvcc printed beside a library is kept in a ``.log`` file
+next to it (``build_log``): for ``syrk_gram``, built with
+``-Xptxas=-v``, each kernel's registers, spills and shared memory.  Each launch goes on the tensor's current CUDA stream; the C
 function returns ``cudaGetLastError()`` and the wrapper raises if that is
 not 0.
 """
@@ -66,7 +70,8 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the plain versions' separate PyTorch kernels do, so that they agree to
 # the bit where their order of operations is the same
 _EXTRA_FLAGS = {"gate_costs": ["-fmad=false"],
-                "wall_search": ["-fmad=false"]}
+                "wall_search": ["-fmad=false"],
+                "syrk_gram": ["-Xptxas=-v"]}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -151,7 +156,9 @@ def build(names: Optional[Iterable[str]] = None) -> None:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {_SOURCES[name]}:\n"
                                f"{outs[name]}")
-        os.replace(tmp, todo[name][2])
+        so = todo[name][2]
+        so.with_suffix(".log").write_text(outs[name])
+        os.replace(tmp, so)
     for name, (_, _, so) in todo.items():
         lib = ctypes.CDLL(str(so))
         _bind(name, lib)
@@ -167,6 +174,11 @@ def _lib(name: str) -> ctypes.CDLL:
 def library_path(name: str) -> Path:
     """The built shared library of kernel ``name`` (built if need be)."""
     return Path(_lib(name)._name)
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed when it built kernel ``name``'s library."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def _stream(device: torch.device) -> int:
@@ -551,9 +563,11 @@ def syrk_gram(S: torch.Tensor, use_pallas: Optional[bool] = None
     f32/bf16/f16 S, f64 for f64), with the JAX dispatch (kernels.py:483):
 
     * ``use_pallas`` falsy: the plain product, ``torch.matmul``, which the
-      JAX default leaves to XLA — what the recompression runs;
-    * truthy, CUDA tensor: the Gram kernel (float32, bfloat16 or float64
-      S), at any D and R: nothing is padded and nothing falls back;
+      JAX default leaves to XLA;
+    * truthy, CUDA tensor: the Gram kernel (float32 S as 3xTF32 on the
+      tensor cores, bfloat16 or float64 S on CUDA cores), at any D and R:
+      nothing is padded and nothing falls back.  The recompression
+      (``srekf_fast.sr_recompress``) runs this;
     * truthy, CPU tensor: the plain version ``syrk_gram_ref``."""
     _require(S.dim() == 2, f"S must be a matrix, got {tuple(S.shape)}")
     if not use_pallas:

@@ -16,10 +16,13 @@ import pytest
 import torch
 
 from ekf_slam_tpu_torch.checks import (bearing_gap_ulps, gate_case,
-                                       gate_tolerance, pair_starts,
+                                       gate_tolerance, gram_banded_case,
+                                       gram_compare, gram_dense_case,
+                                       gram_plain_errors, pair_starts,
                                        recompress_qr_case, score_lines_case,
                                        session_on_devices, syrk_case,
-                                       syrk_compare, wall_search_case,
+                                       syrk_compare, tf32_single_pass,
+                                       wall_search_case,
                                        wall_search_compare)
 from ekf_slam_tpu_torch.ops import gating as G
 from ekf_slam_tpu_torch.ops import kernels as K
@@ -285,19 +288,32 @@ def test_session_on_card_matches_cpu(dev):
     assert (outs["cuda"].pose.cpu() - outs["cpu"].pose).abs().max() <= 1e-3
 
 
+# the edge shapes of K6's f32 tiling: 128x128 tiles, 32-column slabs
+GRAM_EDGE = [(D, R, torch.float32) for D in (1, 127, 128, 129)
+             for R in (1, 3, 31, 33)]
+
+
 @pytest.mark.parametrize("D,R,dtype", [(1003, 1500, torch.float32),
                                        (517, 517, torch.float32),
                                        (130, 7, torch.float32),
                                        (517, 300, torch.bfloat16),
-                                       (517, 517, torch.float64)])
+                                       (517, 517, torch.float64)]
+                         + GRAM_EDGE)
 def test_syrk_gram_kernel_matches_plain(dev, D, R, dtype):
     """K6 at ragged D and R (no tile divides them; the contraction runs
-    over several slabs): within 1e-5 of max|G| in f32 (sums of R products
-    in another order), 1e-12 in f64; G bit-symmetric, in the accumulation
-    dtype; one launch per call."""
-    g = torch.Generator(device=dev).manual_seed(0)
-    S = torch.randn((D, R), generator=g, device=dev,
-                    dtype=torch.float64).to(dtype)
+    over several slabs) and at the edge shapes of its tiles and slabs:
+    within 1e-5 of max|G| in f32 (sums of R products in another order),
+    1e-12 in f64; G bit-symmetric, in the accumulation dtype; one launch
+    per call.  Each f32 case (3xTF32 on the tensor cores) also passes
+    checks.gram_compare against the f64 Gram, with the limit from the
+    plain f32 Grams on the CPU and the card; where every sum is short
+    (R ≤ 33) one TF32 pass (checks.tf32_single_pass) fails it."""
+    if dtype == torch.float32:
+        S = gram_dense_case(D, R).to(dev)
+    else:
+        g = torch.Generator(device=dev).manual_seed(0)
+        S = torch.randn((D, R), generator=g, device=dev,
+                        dtype=torch.float64).to(dtype)
     before = K.syrk_gram.launches
     G_k = K.syrk_gram(S, use_pallas=True)
     torch.cuda.synchronize()
@@ -308,11 +324,33 @@ def test_syrk_gram_kernel_matches_plain(dev, D, R, dtype):
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     assert ((G_k - G_r).abs().max() / G_r.abs().max()).item() <= tol
     assert torch.equal(G_k, G_k.T)
+    if dtype == torch.float32:
+        plain = gram_plain_errors(S)
+        res = gram_compare(G_k, S, plain)
+        assert res["ok"], res
+        if R <= 33:
+            ctrl = gram_compare(tf32_single_pass(S), S, plain)
+            assert not ctrl["ok"], ctrl
+
+
+def test_syrk_gram_kernel_banded_case(dev):
+    """A banded S at D = R = 2048 (checks.gram_banded_case: every tile
+    pair runs, no sum has more than 256 nonzero terms): K6 passes
+    checks.gram_compare and is bit-symmetric; one TF32 pass fails."""
+    S = gram_banded_case(torch.Generator(device=dev).manual_seed(2048),
+                         2048)
+    G_k = K.syrk_gram(S, use_pallas=True)
+    plain = gram_plain_errors(S)
+    res = gram_compare(G_k, S, plain)
+    assert res["ok"], res
+    assert torch.equal(G_k, G_k.T)
+    ctrl = gram_compare(tf32_single_pass(S), S, plain)
+    assert not ctrl["ok"], ctrl
 
 
 def test_syrk_gram_plain_dispatch_launches_nothing(dev):
     """Without the flag the Gram is the plain product, as the JAX default
-    (and the recompression) runs it: no kernel launch."""
+    runs it: no kernel launch (the recompression passes the flag)."""
     S = torch.randn((300, 40), device=dev)
     before = K.syrk_gram.launches
     G = K.syrk_gram(S)
@@ -366,7 +404,7 @@ def test_srekf_fast_session_on_card_matches_cpu(dev):
     """A small square-root session (pair gather on the card), f32, an
     8-column noise buffer so two recompressions run, the same draws on both
     devices: the same landmark count every tick, poses within 1e-3; one
-    K5 launch per tick and no K6 launch."""
+    K5 launch per tick and one K6 launch per recompression."""
     from ekf_slam_tpu_torch import EKFParams, RansacParams
     ep = EKFParams(capacity=64, max_obs=8, ref_compat=False,
                    update_mode="srekf_fast", sr_noise_buffer=8,
@@ -376,7 +414,7 @@ def test_srekf_fast_session_on_card_matches_cpu(dev):
                       promote_count=5, ref_compat=False, n_hypotheses=32)
     K.pair_gather.launches = K.syrk_gram.launches = 0
     outs = session_on_devices(ep, rp, 20, 512, ("cuda", "cpu"))
-    assert (K.pair_gather.launches, K.syrk_gram.launches) == (20, 0)
+    assert (K.pair_gather.launches, K.syrk_gram.launches) == (20, 2)
     assert torch.equal(outs["cuda"].n_active.cpu(), outs["cpu"].n_active)
     assert int(outs["cpu"].n_active[-1]) > 0
     assert (outs["cuda"].pose.cpu() - outs["cpu"].pose).abs().max() <= 1e-3
