@@ -68,10 +68,17 @@ Phases (each prints one line; any failure exits non-zero with no result):
    within 1e-3 (m and degrees; on the square-root path's 80 ticks, m and
    radians, beside the CPU's own f32-against-f64 gap, since the extractor's
    f32 rounding of wall bearings moves the heading by ~1e-2 degrees); then
-   the recompression's QR branch on a factor whose Gram
-   is singular, on the card and on the CPU (the Cholesky gives NaN, the
-   QR branch's result is taken, finite, lower triangular, within 1e-4 of
-   the CPU's);
+   the JAX package's default session, the sequential filter with its
+   preset as constructed (EKF_SLAM_UC, and EKF_SLAM: capacity 128,
+   ref_compat on, f32) and the one-seed wall search at
+   tests/test_sim_session.py's settings, and the QR square-root session
+   (update_mode='srekf', capacity 64), 32 ticks each: no kernel launched
+   (the QR session's wall_search aside), n_active equal every tick,
+   position within 1e-3 m and heading within 1e-3 rad, beside the CPU's
+   own f32-against-f64 gap; then the recompression's QR branch on a
+   factor whose Gram is singular, on the card and on the CPU (the
+   Cholesky gives NaN, the QR branch's result is taken, finite, lower
+   triangular, within 1e-4 of the CPU's);
 6. the tuned path at full width: the 10k-landmark batched session
    (D = 20480 padded, bf16 P, rows + syrk) for 64 ticks of the flagship
    simulator run, with every kernel counter set to 0 just before and read
@@ -139,7 +146,26 @@ Phases (each prints one line; any failure exits non-zero with no result):
    torch.matmul with allow_tf32 True; the blocked Cholesky, and the whole
    recompression at D = 20067 with K6 and with the plain Gram, in turns
    (plain, K6, K6, plain): K6's recompression must be faster by at least
-   0.8 × (the library Gram's time − K6's).
+   0.8 × (the library Gram's time − K6's);
+9. the sequential session at full width: update_mode='sequential',
+   EKF_SLAM_UC, the one-seed wall search, capacity 10000 (P [20003²] f32,
+   unpadded), 32 ticks of the flagship run with every kernel counter set
+   to 0 just before and read just after: no kernel launched, finite state,
+   landmarks mapped, ATE < 0.5 m, no host sync in a tick; the median tick
+   and a torch.profiler line, and the rank-2 update (P.addmm_ at the
+   path's shape, CUDA-graph replays) beside its HBM bound;
+9b. bench.py's sequential metric (bench.py:189-208): a full state of
+   1,000 landmarks (checks.full_state), ML association with s_cost 1e6
+   and s_thresh 1e12, and chains of 256 gate + update steps
+   (checks.sequential_chain), one warm-up and 5 timed from copies of the
+   state: finite, no host sync; the median with its spread, updates/s
+   and a profile line of one chain;
+9c. the QR square-root session at capacity 1000 (D = 2003) for 32 ticks
+   of the flagship run: finite state, landmarks mapped, ATE < 0.5 m, no
+   host sync, one wall_search launch a tick and no other kernel, L lower
+   triangular with diag ≥ 0 and its inactive rows exactly 0; the median
+   tick, a profile line, and the tick's two QRs timed alone with their
+   share of the tick.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  A kernel's `launches` in the JSON is its
@@ -380,7 +406,8 @@ def profile_device(torch, body, n, unit):
             kernel_ms[kern] = sum(durs) / n / 1e3
             ours.append(f"{kern} {len(durs) / n:.0f}/{unit} at "
                         f"{sum(durs) / len(durs) / 1e3:.4f} ms device each")
-    units = {"tick": "ticks", "batch": "batches"}[unit] if n > 1 else unit
+    units = {"tick": "ticks", "batch": "batches", "chain": "chains"}[unit] \
+        if n > 1 else unit
     return (
         f"{n} {units}, host window {window_us / n / 1e3:.3f} ms/{unit}, "
         f"device busy {busy / n / 1e3:.3f} ms/{unit} "
@@ -472,7 +499,8 @@ def full_width_run(torch, tp, W, counted, ep, rp, traj, T):
                f"{launches}, tick median {statistics.median(tick_ms):.3f} "
                f"ms (CUDA events), wall {wall_ms:.3f} ms/tick, "
                f"{len(syncs)} host syncs in one tick at {syncs}")
-    return dict(sess=sess, carry=carry, launches=launches, summary=summary)
+    return dict(sess=sess, carry=carry, launches=launches, summary=summary,
+                tick_median=statistics.median(tick_ms))
 
 
 def main():
@@ -502,6 +530,8 @@ def main():
                                            gram_plain_errors,
                                            pair_starts, recompress_qr_case,
                                            record_syrk, score_lines_case,
+                                           sequential_chain,
+                                           sequential_params,
                                            session_on_devices, syrk_case,
                                            syrk_compare, syrk_gap_bound,
                                            tf32_single_pass,
@@ -887,6 +917,56 @@ def main():
             f"the CPU's f32 run against its f64 run: {fpos:.3e} m, "
             f"{fhead:.3e} rad ({math.degrees(fhead):.3e} deg, tick "
             f"{fworst})")
+    # the sequential filter (the JAX package's default session: the
+    # algorithm's preset as constructed, capacity 128, ref_compat=True,
+    # and the one-seed wall search at tests/test_sim_session.py:29-32's
+    # settings in f32) and the QR square-root filter: no kernel on their
+    # paths but the QR session's wall_search.  Positions are held in
+    # metres and headings in radians, as on the square-root path, beside
+    # the CPU's own f32-against-f64 gap
+    seq_rp = tp.RansacParams(line_consensus=60, bearing_window_deg=15.0,
+                             wall_search_timeout=4, table_capacity=32,
+                             promote_count=5, ref_compat=False)
+    T5 = 32
+    for path, ep5, rp5 in (
+            ("sequential EKF_SLAM_UC", tp.ALGORITHMS["EKF_SLAM_UC"](),
+             seq_rp),
+            ("sequential EKF_SLAM", tp.ALGORITHMS["EKF_SLAM"](), seq_rp),
+            ("srekf", tp.EKFParams(capacity=64, max_obs=8, ref_compat=False,
+                                   update_mode="srekf"),
+             slice_params(torch, 64)[1])):
+        for fn in counted.values():
+            fn.launches = 0
+        outs5 = session_on_devices(ep5, rp5, T5, 1024, ("cuda", "cpu"))
+        got5 = {k: fn.launches for k, fn in counted.items()}
+        want5 = {k: T5 if (k == "wall_search" and rp5.n_hypotheses) else 0
+                 for k in got5}
+        check(got5 == want5, f"{path} session on the card launched {got5}, "
+              f"expected {want5}")
+        na_c, na_h = outs5["cuda"].n_active.cpu(), outs5["cpu"].n_active
+        check(torch.equal(na_c, na_h),
+              f"{path} session n_active differs: card {na_c.tolist()} "
+              f"cpu {na_h.tolist()}")
+        check(int(na_h[-1]) > 0, f"{path} session mapped no landmark")
+        pose_64 = session_on_devices(
+            *(dataclasses.replace(p_, dtype=torch.float64)
+              for p_ in (ep5, rp5)), T5, 1024, ("cpu",))["cpu"].pose
+        dpos, dhead, worst = pose_gaps(outs5["cuda"].pose.cpu(),
+                                       outs5["cpu"].pose)
+        fpos, fhead, fworst = pose_gaps(outs5["cpu"].pose, pose_64)
+        check(dpos <= 1e-3 and dhead <= 1e-3,
+              f"{path} session card/CPU pose differ by {dpos} m, {dhead} "
+              f"rad (worst tick {worst}); the CPU's f32 run differs from "
+              f"its f64 run by {fpos} m, {fhead} rad")
+        log(f"phase 5 {path} session card vs CPU ok: {T5} ticks, capacity "
+            f"{ep5.capacity}, ref_compat {ep5.ref_compat}, "
+            f"n_hypotheses {rp5.n_hypotheses}, card launches "
+            f"{ {k: v for k, v in got5.items() if v} }, n_active equal "
+            f"(final {int(na_h[-1])}), max position diff {dpos:.3e} m, "
+            f"heading {dhead:.3e} rad (tick {worst}); the CPU's f32 run "
+            f"against its f64 run: {fpos:.3e} m, {fhead:.3e} rad")
+    del outs5, pose_64
+
     qr = recompress_qr_case(("cuda", "cpu"))
     for where, res in qr.items():
         check(res["chol_failed"], f"recompression on {where}: the Cholesky "
@@ -1504,6 +1584,138 @@ def main():
         f"{rec_plain_ms - rec_ms:.3f} ms faster, against 0.8 × "
         f"(torch.matmul − K6) = "
         f"{0.8 * (k6['library_ms'] - k6['ms']):.3f} ms")
+
+    torch.cuda.empty_cache()
+
+    # -- 9. the sequential session at full width ---------------------------
+    # the flagship run and extractor with the one-seed wall search
+    # (n_hypotheses 0), EKF_SLAM_UC, EKFParams(capacity=10000, max_obs=8,
+    # ref_compat=False): P [20003²] f32, unpadded.  Every observation row
+    # runs its masked rank-2 update, so a tick makes max_obs passes over P;
+    # JAX launches no Pallas kernel on this path, and neither may the port
+    T9 = 32
+    ep9s, rp9s = slice_params(torch, 10000, update_mode="sequential")
+    rp9s = dataclasses.replace(rp9s, n_hypotheses=0)
+    run9s = full_width_run(torch, tp, W, counted, ep9s, rp9s, traj, T9)
+    filt9s = run9s["carry"].filt
+    D9s = ep9s.dim
+    check(filt9s.P.shape == (D9s, D9s) and filt9s.P.dtype == torch.float32,
+          f"sequential P is {tuple(filt9s.P.shape)} {filt9s.P.dtype}")
+    check(not any(run9s["launches"].values()),
+          f"the sequential path launched {run9s['launches']}, expected no "
+          f"kernel")
+    log(f"phase 9 sequential session full width ok: capacity "
+        f"{ep9s.capacity}, max_obs {ep9s.max_obs}, D={D9s} f32, the "
+        f"one-seed wall search, " + run9s["summary"])
+    prof9s, ops9s = profile_ticks(torch, run9s["sess"], run9s["carry"], traj,
+                                  T9, T_PROF)
+    log(f"phase 9 profile: {prof9s}")
+    # the rank-2 update alone at the path's shape, P.addmm_(Kg, HP,
+    # alpha=-1) as ekf._correct issues it: CUDA-graph replays
+    g9 = torch.Generator(device=dev).manual_seed(9)
+    Kg9 = torch.randn((D9s, 2), generator=g9, device=dev) * 1e-6
+    HP9 = torch.randn((2, D9s), generator=g9, device=dev) * 1e-6
+    P9s = filt9s.P
+    upd9_ms = cuda_ms(torch, lambda: P9s.addmm_(Kg9, HP9, alpha=-1), 10,
+                      warmup=2)
+    upd9_bound = (2 * D9s * D9s + 4 * D9s) * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"phase 9 rank-2 update: P.addmm_ at D={D9s} f32 {upd9_ms:.4f} ms "
+        f"(CUDA-graph replays) against its HBM bound {upd9_bound:.4f} ms "
+        f"(P read and written once at 3.35 TB/s): "
+        f"{100 * upd9_bound / upd9_ms:.1f}%; {ep9s.max_obs} a tick = "
+        f"{ep9s.max_obs * upd9_ms:.3f} ms of the tick median "
+        f"{run9s['tick_median']:.3f} ms; card: {card}")
+    del run9s, filt9s, P9s, Kg9, HP9
+    torch.cuda.empty_cache()
+
+    # -- 9b. bench.py's sequential metric ------------------------------------
+    # bench.py:195-208: a full state of 1,000 landmarks (checks.full_state,
+    # D = 2003, f32 P), ML association with s_cost 1e6 and s_thresh 1e12,
+    # and 256 gate + update steps in a row, each gated against the state
+    # the previous one left; one warm-up and 5 timed repetitions, each from
+    # a copy of the same state (the JAX chain is a pure function of it)
+    ep9b = sequential_params(1000)
+    st9b = full_state(ep9b, 1000, seed=0, device=dev)
+    N9B, REPS9B = 256, 5
+    zs9b = torch.tensor(full_measurements(st9b.x, 1000, N9B, seed=1),
+                        dtype=torch.float32, device=dev)
+
+    def chain9b():
+        return sequential_chain(FilterState(*(v.clone() for v in st9b)),
+                                zs9b, ep9b)
+    rep_ms, syncs9b = [], []
+    for r in range(1 + REPS9B):
+        ev9 = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        st_r = FilterState(*(v.clone() for v in st9b))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                ev9[0].record()
+                st_r = sequential_chain(st_r, zs9b, ep9b)
+                ev9[1].record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs9b += [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+                    for w in caught if "synchroniz" in str(w.message)]
+        check(bool(torch.isfinite(st_r.P).all())
+              and bool(torch.isfinite(st_r.x).all()),
+              f"phase 9b repetition {r}: state not finite")
+        if r:
+            rep_ms.append(ev9[0].elapsed_time(ev9[1]))
+    check(not syncs9b, f"the sequential chain synchronised with the host "
+          f"at {syncs9b}")
+    med9b = statistics.median(rep_ms)
+    spread9b = 100 * (max(rep_ms) - min(rep_ms)) / med9b
+    prof9b = profile_device(torch, chain9b, 1, "chain")
+    log(f"phase 9b bench.py's sequential metric ok: 1000 landmarks, D="
+        f"{ep9b.dim} f32, {N9B} gate + update steps a chain, median of "
+        f"{REPS9B} {med9b:.3f} ms (each {[round(v, 3) for v in rep_ms]}; "
+        f"spread {spread9b:.1f}%), {N9B / med9b * 1e3:.1f} updates/s, no "
+        f"host sync; card: {card}")
+    log(f"phase 9b profile: {prof9b[0]}")
+    del st9b, st_r, zs9b
+    torch.cuda.empty_cache()
+
+    # -- 9c. the QR square-root filter --------------------------------------
+    # update_mode='srekf' at capacity 1000 (D = 2003; the JAX package calls
+    # it a small-capacity mode, config.py:123-125) on the flagship run and
+    # extractor: each tick QRs a (D+1)×D and a (2M+D)² pre-array
+    T9C = 32
+    ep9c, rp9c = slice_params(torch, 1000, update_mode="srekf")
+    run9c = full_width_run(torch, tp, W, counted, ep9c, rp9c, traj, T9C)
+    L9c = run9c["carry"].filt.P
+    n9c = int(run9c["carry"].filt.n_active.item())
+    D9c, M9c = ep9c.dim, ep9c.max_obs
+    check(L9c.shape == (D9c, D9c) and L9c.dtype == torch.float32,
+          f"QR factor is {tuple(L9c.shape)} {L9c.dtype}")
+    check(torch.equal(L9c, L9c.tril()), "QR factor not lower triangular")
+    check(bool((torch.diagonal(L9c) >= 0).all()), "QR factor diag < 0")
+    check(not bool(L9c[3 + 2 * n9c:].any()),
+          "QR factor's inactive rows not exactly 0")
+    expect9c = {k: T9C if k == "wall_search" else 0 for k in counted}
+    check(run9c["launches"] == expect9c,
+          f"QR path launches {run9c['launches']}, expected {expect9c}")
+    log(f"phase 9c QR square-root session ok: capacity {ep9c.capacity}, "
+        f"L ({D9c}, {D9c}) f32 lower triangular, diag ≥ 0, inactive rows "
+        f"0, " + run9c["summary"])
+    prof9c, ops9c = profile_ticks(torch, run9c["sess"], run9c["carry"], traj,
+                                  T9C, T_PROF)
+    log(f"phase 9c profile: {prof9c}")
+    pre_p = torch.randn((D9c + 1, D9c), generator=g9, device=dev)
+    pre_u = torch.randn((2 * M9c + D9c, 2 * M9c + D9c), generator=g9,
+                        device=dev)
+    qr_ms = [event_ms(torch, lambda a=a: torch.linalg.qr(a, mode="r"),
+                      iters=5) for a in (pre_p, pre_u)]
+    log(f"phase 9c the tick's two QRs: torch.linalg.qr(mode='r') of the "
+        f"({D9c + 1}, {D9c}) predict pre-array {qr_ms[0]:.3f} ms and the "
+        f"({2 * M9c + D9c})² update pre-array {qr_ms[1]:.3f} ms (CUDA "
+        f"events): {100 * sum(qr_ms) / run9c['tick_median']:.1f}% of the "
+        f"tick median {run9c['tick_median']:.3f} ms; card: {card}")
+    del run9c, L9c, pre_p, pre_u
+    torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": [dict(name=n, **k)
                                   for n, k in kernels.items()]}))

@@ -20,11 +20,27 @@ use_pallas=True)`` with f32 P.  The general-factor square-root session,
 ``EKFParams(..., update_mode="srekf_fast", rows_gather="pallas")``,
 carries a square root S of P (P = S·Sᵀ) and recompresses it with a
 blocked Cholesky every ``sr_noise_buffer`` ticks.
+
+``SlamSession()`` as constructed runs the reference's sequential filter
+(``update_mode="sequential"``, the one-seed wall search), and
+``update_mode="srekf"`` the QR square-root filter.  The exports are the
+JAX package's but ``MeshConfig``, which comes with the distributed
+layers (ROADMAP §1 item 6).
 """
 
-from .config import EKFParams, RansacParams, SimConfig
-from .session import SessionCarry, SlamSession
+from . import config
+from .config import (ASSOC_KNOWN, ASSOC_ML, ASSOC_SIGNATURE, EKFParams,
+                     RansacParams, SimConfig, ref_compat_known,
+                     ref_compat_legacy, ref_compat_uc)
+from .session import ALGORITHMS, EXTRACTORS, SessionCarry, SlamSession
+from .state import FilterState, init_state
 from .utils.schedule import tuned_params
 
-__all__ = ["SlamSession", "SessionCarry", "EKFParams", "RansacParams",
-           "SimConfig", "tuned_params"]
+__all__ = [
+    "config", "EKFParams", "RansacParams", "SimConfig",
+    "ASSOC_SIGNATURE", "ASSOC_ML", "ASSOC_KNOWN",
+    "ref_compat_uc", "ref_compat_known", "ref_compat_legacy",
+    "FilterState", "init_state",
+    "SlamSession", "SessionCarry", "ALGORITHMS", "EXTRACTORS",
+    "tuned_params",
+]

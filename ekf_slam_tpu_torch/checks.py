@@ -20,12 +20,13 @@ import torch
 
 from .config import EKFParams, RansacParams, SimConfig, resolve_device
 from .models import batched as _batched
+from .models import ekf as _ekf
 from .models.batched import update_chunked
 from .models.srekf import _retriangularize
 from .models.srekf_fast import sr_recompress
 from .ops import gating as G
 from .ops.angles import atan2d, wrap_to_360
-from .ops.association import gate_batch
+from .ops.association import gate, gate_batch
 from .ops.blocked_chol import chol_for_state
 from .ops.kernels import syrk_gram, wall_search
 from .ops.ransac import perpendicular_foot, seed_trials, wall_search_ref
@@ -750,14 +751,16 @@ def session_on_devices(ep: EKFParams, rp: RansacParams, T: int,
     """One ``rectangle_room(4, 3)`` trajectory of T ticks on
     ``circle_controls(T, 0.05, 3.0)`` and one set of extractor draws, both
     made on the CPU from ``seed``, run by a fresh ``SlamSession`` on each
-    device.  Returns {device: the session's stacked outputs}."""
+    device.  The draws have a row per hypothesis of the batched wall
+    search, or per round of the one-seed search (``n_hypotheses=0``).
+    Returns {device: the session's stacked outputs}."""
     g = torch.Generator().manual_seed(seed)
     traj = W.simulate(W.rectangle_room(4.0, 3.0, device="cpu"),
                       W.circle_controls(T, 0.05, 3.0, device="cpu"),
                       SimConfig(n_beams=n_beams, max_range=12.0), g)
-    NH = rp.n_hypotheses
-    draws = [(torch.rand((NH, n_beams), generator=g),
-              torch.rand((NH, n_beams), generator=g)) for _ in range(T)]
+    rows = rp.n_hypotheses or rp.wall_search_timeout
+    draws = [(torch.rand((rows, n_beams), generator=g),
+              torch.rand((rows, n_beams), generator=g)) for _ in range(T)]
     outs = {}
     for where in devices:
         sess = SlamSession(ekf_params=ep, ransac_params=rp, device=where)
@@ -859,3 +862,29 @@ def bench_batch(state: FilterState, zs: torch.Tensor, params: EKFParams
     is_new, slots = gate_batch(state, zs, Rs, params,
                                use_pallas=params.use_pallas)
     return update_chunked(state, zs, slots, Rs, ~is_new, params), slots
+
+
+def sequential_params(K: int, **overrides) -> EKFParams:
+    """The EKFParams of the JAX package's sequential benchmark at K
+    landmarks (bench.py:189-198, ``_params(K, 1)``): ML association,
+    s_cost 1e6, s_thresh 1e12, f32, P in f32, the sequential filter."""
+    base = EKFParams(capacity=K, association="ml", s_cost=1e6,
+                     s_thresh=1e12, ref_compat=False, dtype=torch.float32,
+                     update_mode="sequential")
+    return dataclasses.replace(base, **overrides)
+
+
+def sequential_chain(state: FilterState, zs: torch.Tensor,
+                     params: EKFParams) -> FilterState:
+    """The sequential benchmark's chain (bench.py:195-208): for each row z
+    of zs [n,3] in turn, R = diag(z_r·rc0, z_φ·rc1), the one-measurement
+    gate, and the rank-2 update of the slot it picks, whatever the gate
+    says of novelty.  Each row gates against the state the previous row
+    left; P is updated in place.  Returns the new state."""
+    rc0, rc1 = params.rc
+    for z in zs:                         # a view per row, no host read
+        R2 = torch.diag(torch.stack([z[0] * rc0, z[1] * rc1])).to(
+            params.dtype)
+        _, slot, _ = gate(state, z, R2, params)
+        state = _ekf.update(state, z, slot, R2, params)
+    return state

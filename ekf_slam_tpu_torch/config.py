@@ -58,8 +58,9 @@ class EKFParams:
     p0_diag: float = 0.1
     association: str = ASSOC_SIGNATURE
     ml_losers: str = "append"
-    #: 'batched' and 'srekf_fast' run in this package so far; the session
-    #: raises NotImplementedError for the others.
+    #: 'sequential' (the reference's per-observation chain, models/ekf
+    #: .measure), 'batched', 'srekf' (the QR square-root filter) or
+    #: 'srekf_fast' (the general-factor square-root filter).
     update_mode: str = "sequential"
     sr_noise_buffer: int = 64
     update_chunks: int = 1
@@ -189,9 +190,10 @@ class RansacParams:
     split_kink_deg: float = 0.0
     max_fit_rms: float = 0.0
     split_gap: float = 0.0
-    #: >0 selects the batched-hypothesis wall search, whose scoring runs
-    #: the hand-written CUDA kernel (ops/kernels.score_lines); 0 names the
-    #: sequential search, which is not ported yet.
+    #: >0 selects the batched-hypothesis wall search, whose scoring and
+    #: greedy rounds run in the hand-written CUDA kernel
+    #: (ops/kernels.wall_search); 0 the reference's one-seed-per-round
+    #: search (ops/ransac.find_walls), plain torch ops.
     n_hypotheses: int = 0
     ref_compat: bool = True
     writeback_last_only: bool = True
@@ -232,6 +234,15 @@ def ref_compat_uc(capacity: int = 128, **kw) -> EKFParams:
 def ref_compat_known(capacity: int = 128, **kw) -> EKFParams:
     """EKF_SLAM preset, known correspondence (EKF_SLAM.m:12-16)."""
     kw.setdefault("rc", (0.01, 5.0))
+    kw.setdefault("association", ASSOC_KNOWN)
+    kw.setdefault("ref_compat", True)
+    return EKFParams(capacity=capacity, **kw)
+
+
+def ref_compat_legacy(capacity: int = 128, **kw) -> EKFParams:
+    """Legacy script-pipeline preset (SLAM_ransac.m:17: Rc = [10, 1]),
+    known correspondence."""
+    kw.setdefault("rc", (10.0, 1.0))
     kw.setdefault("association", ASSOC_KNOWN)
     kw.setdefault("ref_compat", True)
     return EKFParams(capacity=capacity, **kw)

@@ -6,6 +6,15 @@
 * **append** — a masked write into the padded state at the device-side
   slot ``n_active``: O(D) row/column writes, no host round trip and no
   full-P select.
+* **update** — the rank-2 correction P −= K·(HP) on the five rows and
+  columns the observation touches (EKF_SLAM_UC.m:125-146): one pass over
+  P.
+* **measure** — the reference's per-observation chain
+  (EKF_SLAM_UC.m:109-150): each observation gates against the state the
+  previous one updated.  The JAX ``lax.cond`` on validity and novelty
+  becomes masks: every row runs a masked update and a masked append, so
+  a tick issues the same ops whatever the scan held and reads nothing
+  back to the host.
 
 All angles are degrees.  ``params.ref_compat`` reproduces the reference's
 numeric quirks.  P is updated in place (the JAX session donates its carry,
@@ -20,8 +29,9 @@ from typing import Tuple
 
 import torch
 
-from ..config import EKFParams, rounded
-from ..ops.angles import atan2d, cosd, sind, wrap_to_360
+from ..config import ASSOC_KNOWN, EKFParams, rounded
+from ..ops.angles import atan2d, cosd, sind, wrap_to_180, wrap_to_360
+from ..ops.association import gate
 from ..state import FilterState
 
 _DEG = math.pi / 180.0
@@ -168,14 +178,27 @@ def append(state: FilterState, u: torch.Tensor, R2: torch.Tensor,
                        n_active=state.n_active + ok.to(torch.int32))
 
 
+def pair_rows(slot, D: int, device) -> torch.Tensor:
+    """The rows [3+2·slot, 4+2·slot] of landmark ``slot`` (an int or a
+    tensor of any shape → [..., 2]), the start clamped into [0, D−2] as
+    ``lax.dynamic_slice`` clamps it (ekf.py:219, 255, 259, 272): a slot
+    past the last one reads the state's last row pair.  An int slot is
+    clamped on the host, so no scalar is copied to the device."""
+    two = torch.arange(2, device=device)
+    if isinstance(slot, torch.Tensor):
+        start = torch.clamp(3 + 2 * slot.to(torch.int64), 0, D - 2)
+        return start[..., None] + two
+    return min(max(3 + 2 * int(slot), 0), D - 2) + two
+
+
 def innovation(x: torch.Tensor, slot
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Predicted measurement ẑ and the measurement Jacobian blocks
     (EKF_SLAM_UC.m:125-139): returns (ẑ [...,2], A [...,2,3] pose block,
-    B [...,2,2] landmark block) for a slot tensor of any shape."""
-    slot = torch.as_tensor(slot, device=x.device).to(torch.int64)
+    B [...,2,2] landmark block) for an int slot or a slot tensor of any
+    shape (``pair_rows`` clamps it)."""
     th = x[2]
-    lm = x[(3 + 2 * slot)[..., None] + torch.arange(2, device=x.device)]
+    lm = x[pair_rows(slot, x.shape[0], x.device)]
     delta = lm - x[:2]
     q = (delta * delta).sum(-1)
     # q = 0 only for padded/empty slots: keep masked lanes finite
@@ -229,3 +252,128 @@ def obs_noise_batch(obs, zs: torch.Tensor, params: EKFParams
     if params.noise_model == "fit" and obs.R is not None:
         return obs.R.to(params.dtype) + _rc_floor(params, zs.device)[None]
     return measurement_noise_batch(zs, params)
+
+
+# ---------------------------------------------------------------------------
+# Measurement update
+# ---------------------------------------------------------------------------
+
+#: elements of one row band of the narrow-storage and Joseph corrections
+#: (64 Mi: 256 MB of f32 a band, so no second D×D buffer appears)
+_BAND_ELEMS = 1 << 26
+
+
+def _inv2(S: torch.Tensor) -> torch.Tensor:
+    """Closed-form 2×2 inverse (the reference's phi^-1, EKF_SLAM_UC.m:144)."""
+    det = S[0, 0] * S[1, 1] - S[0, 1] * S[1, 0]
+    return torch.stack([torch.stack([S[1, 1], -S[0, 1]]),
+                        torch.stack([-S[1, 0], S[0, 0]])]) / det
+
+
+def _correct(P: torch.Tensor, Kg: torch.Tensor, HP: torch.Tensor,
+             S: torch.Tensor, params: EKFParams, mask) -> None:
+    """P ← P − Kg·HP, or the Joseph form P − KB − KBᵀ + Kg·S·Kgᵀ with
+    KB = Kg·HP (ekf.py:273-279), in place.
+
+    With P stored in its own dtype the plain form is one in-place
+    ``addmm_``.  With a narrower storage dtype, or the Joseph form, the
+    products and differences are formed in the compute dtype and rounded
+    once into P, as the JAX expression is, row band by row band: each
+    band needs only its own rows of P (HP was read before), so no second
+    D×D buffer appears.  A masked-off row leaves the band as it was."""
+    if P.dtype == Kg.dtype and not params.joseph:
+        # Kg and HP are exactly 0 on a masked-off row: P − 0·0 is P
+        P.addmm_(Kg, HP, alpha=-1)
+        return
+    D = P.shape[0]
+    step = max(1, _BAND_ELEMS // D)
+    KS = Kg @ S if params.joseph else None
+    for r0 in range(0, D, step):
+        r1 = min(D, r0 + step)
+        band = P[r0:r1].to(Kg.dtype)
+        new = band - Kg[r0:r1] @ HP
+        if params.joseph:
+            new = new - HP[:, r0:r1].T @ Kg.T + KS[r0:r1] @ Kg.T
+        if mask is not None:
+            new = torch.where(mask, new, band)
+        P[r0:r1] = new.to(P.dtype)
+
+
+def update(state: FilterState, z: torch.Tensor, slot, R2: torch.Tensor,
+           params: EKFParams, mask=None) -> FilterState:
+    """Kalman update against landmark ``slot`` (EKF_SLAM_UC.m:125-146):
+    PHᵀ from P's pose columns and the slot's column pair, K = PHᵀ·Φ⁻¹,
+    P ← P − K·(HP), in place (one pass over P).
+
+    ``mask`` (a device bool) makes it a no-op where False, for the
+    masked chain of ``measure``: Kg, ν and HP are selected to 0 and x is
+    selected back, so a masked row leaves x and P bit-for-bit as they
+    were even where Φ is singular (an empty slot's inverse is inf/NaN).
+    ``slot`` is clamped as ``lax.dynamic_slice`` clamps it."""
+    x, P = state.x, state.P
+    ct = x.dtype
+    dev = x.device
+    zhat, A, B = innovation(x, slot)
+    Hs = torch.cat([A, B], dim=1)                               # [2,5]
+    idx = torch.cat([torch.arange(3, device=dev),
+                     pair_rows(slot, x.shape[0], dev)])         # [5]
+
+    # PHᵀ and HP are both read before P is written
+    PHt = P.index_select(1, idx).to(ct) @ Hs.T                  # [D,2]
+    S = Hs @ PHt.index_select(0, idx) + R2.to(ct)               # [2,2]
+    Kg = PHt @ _inv2(S)                                         # [D,2]
+    nu = z[:2].to(ct) - zhat
+    if not params.ref_compat:
+        # the reference never re-wraps the bearing innovation
+        # (EKF_SLAM_UC.m:145); the correct mode does
+        nu = torch.stack([nu[0], wrap_to_180(nu[1])])
+    HP = Hs @ P.index_select(0, idx).to(ct)                     # [2,D]
+    if mask is not None:
+        Kg = torch.where(mask, Kg, 0.0)
+        nu = torch.where(mask, nu, 0.0)
+        HP = torch.where(mask, HP, 0.0)
+
+    x_new = x + Kg @ nu
+    x = x_new if mask is None else torch.where(mask, x_new, x)
+    _correct(P, Kg, HP, S, params, mask)
+    if params.symmetrize:
+        # out of place: P + Pᵀ in place would read entries it already
+        # wrote
+        sym = 0.5 * (P + P.T)
+        P.copy_(sym if mask is None else torch.where(mask, sym, P))
+    return state._replace(x=x, P=P)
+
+
+def measure(state: FilterState, obs, u: torch.Tensor, params: EKFParams
+            ) -> FilterState:
+    """One tick's observations in order (EKF_SLAM_UC.m:109-150; JAX
+    ekf.py:335-377): each row is gated against the state the previous row
+    left, then updates its slot or appends a new landmark.
+
+    The JAX ``lax.cond`` pair becomes masks: every row runs ``update``
+    masked by valid & ~new and ``append`` masked by valid & new, so the
+    loop over ``max_obs`` rows issues the same ops every tick and reads
+    nothing back to the host.  Every row pays its pass over P."""
+    zs = torch.stack([obs.rng, obs.bearing, obs.index.to(params.dtype)],
+                     dim=-1)
+    # R scales with the measured values in the default 'scaled' model;
+    # 'fit' adds the extractor's propagated R to the floor (ekf.py:349-351)
+    Rs = obs_noise_batch(obs, zs, params)                       # [M,2,2]
+    for ii in range(zs.shape[0]):
+        z, R2 = zs[ii], Rs[ii]
+        if params.association == ASSOC_KNOWN:
+            # EKF_SLAM.m:118: new iff the carried id exceeds the landmark
+            # count; the update indexes by the loop counter (the
+            # EKF_SLAM.m:123 quirk) or by the id in correct mode
+            is_new = z[2] > state.n_active.to(z.dtype)
+            slot = ii if params.ref_compat else obs.index[ii] - 1
+        else:
+            is_new, slot, _ = gate(state, z, R2, params)
+        # the first landmark is appended unconditionally
+        # (EKF_SLAM_UC.m:112-113)
+        is_new = is_new | (state.n_active == 0)
+        valid = obs.valid[ii]
+        state = update(state, z, slot, R2, params, mask=valid & ~is_new)
+        state = append(state, u, R2, obs.loc[ii], z[2], params,
+                       mask=valid & is_new)
+    return state

@@ -1,13 +1,20 @@
-"""Square-root (factor) EKF-SLAM pieces (counterpart of
+"""Square-root (factor) EKF-SLAM (counterpart of
 ekf_slam_tpu/models/srekf.py): P = L·Lᵀ with the factor carried in the
 state's P field, so P stays positive semi-definite at any precision.
 
-Ported so far: what the general-factor session (models/srekf_fast.py)
-runs — the dense ↔ factor conversions, QR re-triangularization, the O(D)
-landmark append and the gate strips read from the factor.  The QR filter
-itself (``update_mode='srekf'``: ``sr_predict``, ``sr_update_batch``,
-``sr_measure_batched``) QRs a (D+1)×D and a (2M+D)² pre-array every tick
-and is a later slice; its functions raise NotImplementedError.
+Here: the dense ↔ factor conversions, the O(D) landmark append, the gate
+strips read from the factor (also what the general-factor session,
+models/srekf_fast.py, runs), and the QR filter (``update_mode='srekf'``):
+``sr_predict`` and ``sr_update_batch`` re-triangularize by a Householder
+QR of a (D+1)×D and a (2M+D)² pre-array every tick, O(D³), a
+small-capacity mode (JAX config.py:123-125).  The QRs, the Cholesky of
+the noise block and the triangular solve are library calls, as they are
+XLA's in the JAX package; ``cholesky_ex`` does not read its info flag
+back, so a tick does not sync.
+
+QR's R is sign-ambiguous row by row: the new factor's columns are
+sign-fixed (diag(L) ≥ 0, the canonical Cholesky factor), and the mean's
+correction X₁₂ᵀ·X₁₁⁻ᵀν does not depend on the signs.
 
 The factor is updated in place where the JAX package returns a new one
 (``sr_append``): a state passed in is consumed.
@@ -18,9 +25,14 @@ from typing import Tuple
 
 import torch
 
-from ..config import EKFParams
+from ..config import ASSOC_KNOWN, EKFParams
+from ..ops.angles import cosd, sind, wrap_to_360
+from ..ops.association import gate_batch
 from ..ops.blocked_chol import chol_for_state
+from ..ops.observations import ObsBatch
 from ..state import FilterState
+from . import ekf
+from .batched import innovation_operator, noise_block
 from .ekf import _jacobians
 
 
@@ -118,20 +130,99 @@ def sr_strips(L: torch.Tensor, K: int, triangular: bool = True
     return Prr, Prl, Pll
 
 
-def _qr_filter(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"srekf.{name} (the QR square-root filter, update_mode='srekf') is "
-        "not ported to ekf_slam_tpu_torch yet: it is the next slice; "
-        "update_mode='srekf_fast' runs the general-factor filter")
+def _active_rows(state: FilterState, dt) -> torch.Tensor:
+    """1 on the 3 + 2·n_active active rows, 0 below, as a [D,1] column."""
+    D = state.x.shape[0]
+    act = torch.arange(D, device=state.x.device) < 3 + 2 * state.n_active
+    return act[:, None].to(dt)
 
 
-def sr_predict(state, u, params):
-    raise _qr_filter("sr_predict")
+def sr_predict(state: FilterState, u: torch.Tensor, params: EKFParams
+               ) -> FilterState:
+    """Square-root prediction (covariance math of EKF_SLAM.m:40-51; JAX
+    srekf.py:95-128): P' = F·P·Fᵀ + c·W·Wᵀ, so L' is the re-triangularized
+    QR of the (D+1)×D pre-array [(F·L)ᵀ; √c·Wᵀ], where F·L is L plus two
+    row axpys.  Inactive rows of L' are multiplied by 0."""
+    x, L = state.x, state.P
+    dt = L.dtype
+    th = x[2]
+    dD, dTh = u[0], u[1]
+    W = torch.stack([dD * cosd(th), dD * sind(th), dTh]).to(dt)
+    # √c in L's dtype, as jnp.sqrt(jnp.asarray(c, dt)) rounds it; a
+    # Python float, so no scalar goes to the device
+    sqc = torch.tensor(params.c_process, dtype=dt).sqrt().item()
+    wrow = torch.zeros((1, L.shape[0]), dtype=dt, device=L.device)
+    wrow[0, :3] = sqc * W
+
+    new_pose, f13, f23 = ekf.motion_model(x[:3], u, params.ref_compat)
+    new_pose = torch.cat([new_pose[:2], wrap_to_360(new_pose[2:3])])
+    x = torch.cat([new_pose.to(x.dtype), x[3:]])
+
+    FL = L.clone()
+    FL[0] += f13 * L[2]
+    FL[1] += f23 * L[2]
+    pre = torch.cat([FL.T, wrow], dim=0)                 # [(D+1), D]
+    L = _retriangularize(pre, L.shape[0])
+    return state._replace(x=x, P=L * _active_rows(state, dt))
 
 
-def sr_update_batch(state, zs, slots, Rs, valid, params):
-    raise _qr_filter("sr_update_batch")
+def sr_update_batch(state: FilterState, zs: torch.Tensor,
+                    slots: torch.Tensor, Rs: torch.Tensor,
+                    valid: torch.Tensor, params: EKFParams) -> FilterState:
+    """Joint square-root update of M observations (JAX srekf.py:184-224):
+    the QR of the (2M+D)² pre-array [[chol(R)ᵀ, 0], [LᵀHᵀ, Lᵀ]] gives
+    [[X₁₁, X₁₂], [0, L'ᵀ]] with X₁₁ᵀX₁₁ = HPHᵀ + R, X₁₂ᵀ = K·X₁₁ᵀ and
+    L'L'ᵀ = P − K·S·Kᵀ; x += X₁₂ᵀ·(X₁₁⁻ᵀ·ν) without forming K.  Invalid
+    rows have zero H columns, zero ν and an identity noise block."""
+    x, L = state.x, state.P
+    D = x.shape[0]
+    M2 = 2 * zs.shape[0]
+    dt = L.dtype
+
+    Ht, nu = innovation_operator(x, zs, slots, valid, params, dt)
+    # block-diagonal 2×2 noise: its Cholesky cannot fail on valid R
+    sqR, _ = torch.linalg.cholesky_ex(noise_block(Rs, valid, dt))
+    U = L.T @ Ht                                         # [D,2M] = (H·L)ᵀ
+    pre = torch.cat([
+        torch.cat([sqR.T, torch.zeros((M2, D), dtype=dt, device=L.device)],
+                  dim=1),
+        torch.cat([U, L.T], dim=1),
+    ], dim=0)                                            # [(2M+D), (2M+D)]
+    Rfac = torch.linalg.qr(pre, mode="r")[1]
+    X11 = Rfac[:M2, :M2]                                 # upper, X11ᵀX11 = S
+    X12 = Rfac[:M2, M2:]                                 # [2M, D]
+    Lp = _sign_fix(Rfac[M2:, M2:].T)                     # lower, the new L
+    y = torch.linalg.solve_triangular(X11.T, nu[:, None], upper=False)[:, 0]
+    x = x + X12.T @ y
+    return state._replace(x=x, P=Lp * _active_rows(state, dt))
 
 
-def sr_measure_batched(state, obs, u, params):
-    raise _qr_filter("sr_measure_batched")
+def sr_measure_batched(state: FilterState, obs: ObsBatch, u: torch.Tensor,
+                       params: EKFParams) -> FilterState:
+    """Square-root counterpart of models/batched.measure_batched (JAX
+    srekf.py:248-276): gate every observation against the prior factor's
+    strips, one joint QR update, then the masked O(D) appends of the new
+    landmarks in order.
+
+    As in JAX, the gate returns no losers, so ``ml_losers='drop'`` is
+    not honoured here: an ml_unique observation that loses its slot is
+    appended as a new landmark (srekf_fast.sr_measure_fast drops it)."""
+    zs = torch.stack([obs.rng, obs.bearing, obs.index.to(params.dtype)],
+                     dim=-1)
+    Rs = ekf.obs_noise_batch(obs, zs, params)
+    if params.association == ASSOC_KNOWN:
+        is_new = zs[:, 2] > state.n_active.to(params.dtype)
+        slots = torch.clamp(obs.index - 1, 0, state.capacity - 1)
+    else:
+        is_new, slots = gate_batch(state, zs, Rs, params,
+                                   strips=sr_strips(state.P,
+                                                    state.capacity))
+    is_new = is_new | (state.n_active == 0)
+
+    state = sr_update_batch(state, zs, slots, Rs, obs.valid & ~is_new,
+                            params)
+    add = obs.valid & is_new
+    for ii in range(zs.shape[0]):
+        state = sr_append(state, u, Rs[ii], obs.loc[ii], zs[ii, 2], params,
+                          mask=add[ii])
+    return state

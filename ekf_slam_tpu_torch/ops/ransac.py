@@ -4,7 +4,9 @@ ekf_slam_tpu/ops/ransac.py; RANSAC.m:14-373).
 The batched-hypothesis wall search seeds NH trial lines with torch ops,
 then runs the initial scoring and every greedy round in one launch of the
 hand-written CUDA kernel ``ops/kernels.wall_search`` (its plain version is
-``wall_search_ref`` below).  The candidate
+``wall_search_ref`` below).  The reference's one-seed-per-round search
+(``find_walls``, ``n_hypotheses=0``) is plain torch ops, as it is XLA in
+the JAX package.  The candidate
 table keeps the reference's semantics and quirks (two-quadrant bearing
 window, increment-all-matches, promotion after promote_count sightings,
 first-candidate seeding of an empty table, decay only on ticks with a
@@ -17,10 +19,12 @@ scan holds: no Python ``if`` on a device value, no host sync.  Indices
 that come from the device are used through ``index_select``/``gather``
 (indexing a tensor with a 0-dim tensor would read it back to the host).
 
-Randomness: the JAX extractor draws u, s ~ U[0,1) [NH, B] from threefry
-(ransac.py:314-325), which torch cannot reproduce.  ``find_walls_batched``
-and ``extract`` take the draws explicitly (``draws=(u, s)``) and otherwise
-draw them from the given ``torch.Generator`` on the points' device.
+Randomness: the JAX extractor draws u, s ~ U[0,1) ([NH, B] for the
+batched search, ransac.py:314-325; [T, B] for ``find_walls``, :244-262)
+from threefry, which torch cannot reproduce.  ``find_walls``,
+``find_walls_batched`` and ``extract`` take the draws explicitly
+(``draws=(u, s)``) and otherwise draw them from the given
+``torch.Generator`` on the points' device.
 """
 from __future__ import annotations
 
@@ -366,6 +370,73 @@ def find_walls_batched(points: torch.Tensor, valid: torch.Tensor,
     return wall_search(points, valid, trial, trial_ok, params)
 
 
+def find_walls(points: torch.Tensor, valid: torch.Tensor,
+               params: RansacParams,
+               draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               generator: Optional[torch.Generator] = None):
+    """The reference's wall search (RANSAC.m:109-128; JAX ransac.py:229-286):
+    up to T = wall_search_timeout rounds, each drawing one seed point from
+    the pool, fitting ``sample_points`` draws from its bearing window,
+    taking the seed line's inliers over the whole pool and, where the
+    round finds a wall, refitting it and removing its inliers.
+
+    Plain torch ops: JAX runs this search in XLA, with no Pallas kernel.
+    The draws are (u [T,B], s [T,B]) ~ U[0,1), round r's seed pick and
+    window sample — JAX's threefry gives round r's pair from
+    split(split(key, T)[r]) — handed in for parity, else drawn from
+    ``generator``.  Every round runs whatever the pool holds, and a round
+    that finds no wall leaves the pool as it was.
+
+    Returns (lines [T,2] as (m, b), ok [T], remaining valid mask,
+    fit stats [T,3])."""
+    B = points.shape[0]
+    T = params.wall_search_timeout
+    dev = points.device
+    bearing = _bearing(points, params)
+    half_win = params.bearing_window_deg / 2.0
+    if draws is None:
+        u = torch.rand((T, B), generator=generator, device=dev,
+                       dtype=points.dtype)
+        s = torch.rand((T, B), generator=generator, device=dev,
+                       dtype=points.dtype)
+    else:
+        u, s = draws
+    avail = valid
+    lines, oks, stats_all = [], [], []
+    for r in range(T):
+        run = avail.sum() > params.line_consensus    # RANSAC.m:114 guard
+        # a random available point (datasample, RANSAC.m:157) and the
+        # bearing window around it (RANSAC.m:160-171)
+        seed_i = torch.argmax(torch.where(avail, u[r], -1.0))
+        cb = _take(bearing, seed_i)
+        in_win = (avail & (bearing <= cb + half_win)
+                  & (bearing >= cb - half_win))
+        enough = in_win.sum() > params.sample_points  # RANSAC.m:176
+        # sample_points window draws; the -inf outside the window are
+        # masked off by "& in_win", whichever of their ties topk returns
+        top_idx = torch.topk(torch.where(in_win, s[r], -math.inf),
+                             params.sample_points).indices
+        sel = torch.zeros((B,), dtype=torch.bool, device=dev)
+        sel = sel.index_fill(0, top_idx, True) & in_win
+        # the seed line and its inliers over the pool (RANSAC.m:185-198)
+        m0, b0, fit_ok = fit_line(points, sel)
+        inl = avail & (point_line_dist(points, m0, b0) < params.inlier_dist)
+        wall = (run & enough & fit_ok
+                & (inl.sum() > params.line_consensus))   # RANSAC.m:203
+        # refit on the inliers and take them from the pool (:206-209)
+        m1, b1, refit_ok = fit_line(points, inl)
+        wall = wall & refit_ok
+        m1, b1, inl, ok_q, stats = _finalize_wall(points, avail, inl,
+                                                  m1, b1, refit_ok, params)
+        wall = wall & ok_q
+        avail = torch.where(wall, avail & ~inl, avail)
+        lines.append(torch.stack([m1, b1]))
+        oks.append(wall)
+        stats_all.append(stats)
+    return (torch.stack(lines), torch.stack(oks), avail,
+            torch.stack(stats_all))
+
+
 def foot_covariance(lines: torch.Tensor, stats: torch.Tensor
                     ) -> torch.Tensor:
     """World-frame covariance [T,2,2] of each perpendicular-foot landmark
@@ -590,18 +661,21 @@ def extract(table: LandmarkTable, scan: Scan, x: torch.Tensor,
             draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
             generator: Optional[torch.Generator] = None
             ) -> Tuple[ObsBatch, LandmarkTable]:
-    """One extraction tick: write-back → world points → batched wall
-    search → perpendicular-foot landmarks → table update."""
-    if params.n_hypotheses <= 0:
-        raise NotImplementedError(
-            "the sequential wall search (find_walls, n_hypotheses=0) is "
-            "not ported yet; set RansacParams.n_hypotheses > 0")
+    """One extraction tick: write-back → world points → wall search →
+    perpendicular-foot landmarks → table update.  The wall search is the
+    batched one (``find_walls_batched``) when ``params.n_hypotheses`` > 0,
+    else the reference's one seed a round (``find_walls``); ``draws`` are
+    that search's ((u, s) [NH,B] each, or [T,B] each)."""
     table = writeback(table, x, n_active, params, sig=sig)
     pose = x[:3]
     pts = scan_to_world(scan, pose)
-    lines, line_ok, _, stats = find_walls_batched(
-        pts, scan.valid, params, params.n_hypotheses, draws=draws,
-        generator=generator)
+    if params.n_hypotheses > 0:
+        lines, line_ok, _, stats = find_walls_batched(
+            pts, scan.valid, params, params.n_hypotheses, draws=draws,
+            generator=generator)
+    else:
+        lines, line_ok, _, stats = find_walls(
+            pts, scan.valid, params, draws=draws, generator=generator)
     feet = perpendicular_foot(lines[:, 0], lines[:, 1])
     return update_table(table, feet, line_ok, pose, params, max_obs,
                         cand_cov=foot_covariance(lines, stats))

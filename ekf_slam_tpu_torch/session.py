@@ -1,10 +1,26 @@
 """SLAM session orchestrator (counterpart of ekf_slam_tpu/session.py;
 SLAM.m:70-144).
 
-One tick in ``update_mode='batched'`` with odometry control:
+One tick with odometry control:
 
-    scan_from_ranges → ekf.predict → ransac.extract → association.gate_batch
-    → batched.update_chunked → ekf.append
+    scan_from_ranges → predict → ransac.extract → measure
+
+where predict and measure follow ``update_mode``:
+- 'sequential' (the default, the reference's chain): ``ekf.predict``,
+  then ``ekf.measure``, each observation gated (``association.gate``)
+  and applied in turn;
+- 'batched': ``ekf.predict``, then ``batched.measure_batched``
+  (``gate_batch`` → ``update_chunked`` → ``ekf.append``), on the tuned
+  schedule (utils/schedule.tuned_params: rows, bf16 P, the SYRK kernel)
+  or the kernel path (``use_pallas=True, rows_gather='pallas',
+  correction='gemm'``: the fused gate, row-pair gather and in-place
+  correction kernels);
+- 'srekf' (the QR square-root filter, models/srekf.py): the triangular
+  factor L (P = L·Lᵀ) carried in the P field, ``sr_predict`` and
+  ``sr_measure_batched``;
+- 'srekf_fast' (the general-factor square-root filter,
+  models/srekf_fast.py): the factor S carried in the P field, recompressed
+  every ``sr_noise_buffer`` ticks.
 
 The JAX session compiles the tick once and scans it over a sequence; here
 ``run`` is a Python loop over ticks and each tick issues the same ops on
@@ -21,19 +37,12 @@ given explicit draws ``(u, s)`` — the JAX package draws them from
 threefry, which torch cannot reproduce, so parity runs hand the JAX
 draws in.
 
-Ported so far, with odometry control: the batched session on two paths
-— the tuned schedule (utils/schedule.tuned_params: rows, bf16 P, the SYRK
-kernel) and the kernel path (``use_pallas=True, rows_gather='pallas',
-correction='gemm'``: the fused gate, row-pair gather and in-place
-correction kernels) — and the general-factor square-root session
-(``update_mode='srekf_fast'``, models/srekf_fast.py), whose factor S is
-carried in the P field.  Its recompression schedule is kept on the host:
-the carry's ``sr_tick`` is a Python int, so the tick that recompresses
-and the noise column of each predict are known without a read from the
+Under 'srekf_fast' the recompression schedule is kept on the host: the
+carry's ``sr_tick`` is a Python int, so the tick that recompresses and
+the noise column of each predict are known without a read from the
 device; the recompression itself reads one flag back (its QR branch,
-srekf_fast.sr_recompress), so that tick syncs once.  The QR square-root
-mode ('srekf'), the sequential mode, ICP/fused control, the fault guard
-and map maintenance raise NotImplementedError.
+srekf_fast.sr_recompress), so that tick syncs once.  ICP/fused control,
+the fault guard and map maintenance raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -46,7 +55,8 @@ from .config import (EKFParams, RansacParams, ref_compat_known,
                      ref_compat_uc, resolve_device)
 from .models import ekf
 from .models.batched import measure_batched
-from .models.srekf import factor_from_state, sr_strips
+from .models.srekf import (factor_from_state, sr_measure_batched,
+                           sr_predict, sr_strips)
 from .models.srekf_fast import sr_measure_fast, sr_predict_fast, sr_recompress
 from .ops.angles import angdiff_deg
 from .ops.association import batch_costs, gate_batch
@@ -88,8 +98,8 @@ class StepOutput(NamedTuple):
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to ekf_slam_tpu_torch yet (a later slice); "
-        "the port runs update_mode='batched' or 'srekf_fast' with odometry "
-        "control")
+        "the port runs every update_mode with odometry control, without "
+        "the fault guard or map maintenance")
 
 
 @dataclasses.dataclass
@@ -130,8 +140,6 @@ class SlamSession:
         ep = self.ekf_params
         if self.control_source != "odometry":
             raise _not_ported(f"control_source={self.control_source!r}")
-        if ep.update_mode not in ("batched", "srekf_fast"):
-            raise _not_ported(f"update_mode={ep.update_mode!r}")
         if ep.guard_max_jump is not None:
             raise _not_ported("the fault guard (guard_max_jump)")
         if self.maintain_merge_radius > 0 or self.maintain_max_trace > 0:
@@ -146,8 +154,9 @@ class SlamSession:
         multiple of 512, as the JAX session pads it for its kernel
         (session.py:204-214), so both packages run the same D; under
         'srekf_fast' it gains ``sr_noise_buffer`` spare dims and carries
-        its Cholesky factor (session.py:195-202).  ``init_pose`` anchors
-        the filter at [x, y, theta_deg]."""
+        its Cholesky factor (session.py:195-202); under 'srekf' it carries
+        the Cholesky factor of the unpadded state (session.py:215-218).
+        ``init_pose`` anchors the filter at [x, y, theta_deg]."""
         ep = self.ekf_params
         sr_tick = None
         if ep.update_mode == "srekf_fast":
@@ -157,6 +166,8 @@ class SlamSession:
         else:
             pad = 512 if ep.correction == "syrk" else 1
             filt = init_state(ep, pad_to_multiple_of=pad, device=self.device)
+            if ep.update_mode == "srekf":
+                filt = factor_from_state(filt)
         if init_pose is not None:
             x = filt.x.clone()
             x[:3] = torch.as_tensor(init_pose, dtype=x.dtype)
@@ -177,8 +188,9 @@ class SlamSession:
         zs = torch.stack([obs.rng, obs.bearing, obs.index.to(ep.dtype)],
                          dim=-1)
         Rs = ekf.obs_noise_batch(obs, zs, ep)
-        strips = (sr_strips(filt.P, ep.capacity, triangular=False)
-                  if ep.update_mode == "srekf_fast" else None)
+        strips = (sr_strips(filt.P, ep.capacity,
+                            triangular=ep.update_mode == "srekf")
+                  if ep.update_mode in ("srekf", "srekf_fast") else None)
         if ep.association == "known":
             is_new = zs[:, 2] > filt.n_active.to(ep.dtype)
             slots = torch.clamp(obs.index - 1, 0, ep.capacity - 1)
@@ -206,12 +218,15 @@ class SlamSession:
         dTh = angdiff_deg(old[2], odom_pose[2])
         u = torch.stack([dD, dTh]).to(ep.dtype)
 
-        sr = ep.update_mode == "srekf_fast"
+        mode = ep.update_mode
+        sr = mode == "srekf_fast"
         if sr:
             # this tick's fresh zero column of the factor: the buffer
             # starts right past the last slot dim (3+2K)
             col = ep.dim + carry.sr_tick % ep.sr_noise_buffer
             filt = sr_predict_fast(carry.filt, u, ep, col)
+        elif mode == "srekf":
+            filt = sr_predict(carry.filt, u, ep)
         else:
             filt = ekf.predict(carry.filt, u, ep)              # SLAM.m:110
         obs, table = self._extract(carry.table, scan, filt.x, filt.n_active,
@@ -220,8 +235,12 @@ class SlamSession:
         nis = self._nis(filt, obs) if self.collect_nis else None
         if sr:
             filt = sr_measure_fast(filt, obs, u, ep)
+        elif mode == "srekf":
+            filt = sr_measure_batched(filt, obs, u, ep)
+        elif mode == "batched":
+            filt = measure_batched(filt, obs, u, ep)
         else:
-            filt = measure_batched(filt, obs, u, ep)           # SLAM.m:116
+            filt = ekf.measure(filt, obs, u, ep)               # SLAM.m:116
         sr_tick = carry.sr_tick
         if sr:
             # every sr_noise_buffer ticks the spare columns run out:
@@ -242,7 +261,8 @@ class SlamSession:
             draws: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]]
             = None) -> Tuple[SessionCarry, StepOutput]:
         """Run a sequence tick by tick: odom_poses f[T,3], ranges f[T,B],
-        beam_angles f[B]; ``draws`` optionally one (u, s) pair per tick.
+        beam_angles f[B]; ``draws`` optionally one (u, s) pair per tick
+        (the extractor's: see ransac.extract).
         Returns the final carry and the per-tick outputs stacked on a
         leading T axis."""
         odom_poses = torch.as_tensor(odom_poses, device=self.device)

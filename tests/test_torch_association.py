@@ -12,7 +12,7 @@ from ekf_slam_tpu.ops import association as jas
 from ekf_slam_tpu_torch.ops import association as tas
 
 from torch_parity_helpers import (jax_state, max_rel, n, port, random_state,
-                                  torch_state)
+                                  t, torch_state)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -138,3 +138,94 @@ def test_exclusive_matches(rng):
                          torch.from_numpy(cost), K)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(n(g), n(w))
+
+
+def _ml(association, noise_model):
+    return jc.EKFParams(capacity=12, association=association,
+                        noise_model=noise_model, s_cost=1e6,
+                        s_thresh=50.0 if association != "signature" else 1e9,
+                        ref_compat=noise_model == "scaled",
+                        dtype=jnp.float64)
+
+
+@pytest.mark.parametrize("association", ["signature", "ml", "ml_unique"])
+@pytest.mark.parametrize("noise_model", ["scaled", "constant", "fit"])
+def test_gate_costs_and_gate_match(rng, association, noise_model):
+    """One measurement at a time (the sequential filter's gate): both
+    cost vectors within 1e-12 relative of JAX's gate_costs, and gate's
+    is_new, slot and masked cost vector equal / within 1e-12, for each of
+    a batch's re-observations and new features."""
+    p = _ml(association, noise_model)
+    js = jax_state(random_state(rng, K=12, n_active=8))
+    ts = torch_state(js)
+    zs, Rs = _batch(rng, js, noise_model=noise_model)
+    seen_new = seen_old = False
+    for z, R in zip(zs, Rs):
+        wp, ws = jas.gate_costs(js, jnp.asarray(z), jnp.asarray(R), p)
+        gp, gs = tas.gate_costs(ts, t(z), t(R), port(p))
+        assert max_rel(gp[:8], wp[:8]) <= 1e-12
+        assert max_rel(gs, ws) <= 1e-12
+        wn, wslot, wcost = jas.gate(js, jnp.asarray(z), jnp.asarray(R), p)
+        gn, gslot, gcost = tas.gate(ts, t(z), t(R), port(p))
+        assert bool(gn) == bool(wn) and int(gslot) == int(wslot)
+        assert gslot.dtype == torch.int32
+        np.testing.assert_array_equal(np.isinf(n(gcost)),
+                                      np.isinf(n(wcost)))
+        fin = np.isfinite(n(wcost))
+        assert max_rel(n(gcost)[fin], n(wcost)[fin]) <= 1e-12
+        seen_new |= bool(wn)
+        seen_old |= not bool(wn)
+    assert seen_old and (seen_new or association == "signature")
+
+
+def test_gate_ties_take_the_first_slot(rng):
+    """Two active slots with the same signature give equal signature
+    costs: both packages take the lower slot (jnp.argmin and
+    torch.argmin return the first minimum)."""
+    p = jc.EKFParams(capacity=12, dtype=jnp.float64)          # signature
+    arrs = list(random_state(rng, K=12, n_active=8))
+    arrs[2] = arrs[2].copy()
+    arrs[2][[2, 5]] = 4.0
+    js = jax_state(arrs)
+    z = np.array([2.0, 40.0, 4.0])
+    R = np.diag([0.2, 200.0])
+    wn, wslot, _ = jas.gate(js, jnp.asarray(z), jnp.asarray(R), p)
+    gn, gslot, gcost = tas.gate(torch_state(js), t(z), t(R), port(p))
+    assert not bool(wn) and int(wslot) == 2
+    assert not bool(gn) and int(gslot) == 2 and float(gcost[5]) == 0.0
+
+
+@pytest.mark.parametrize("case", ["no_active_slot", "none_passes"])
+def test_gate_all_inf_is_new_at_slot_0(rng, case):
+    """No slot passes (no landmark yet, or every cost over s_thresh):
+    every masked cost is +inf, is_new is True and the slot is 0 in both
+    packages."""
+    p = jc.EKFParams(capacity=12, dtype=jnp.float64)
+    js = jax_state(random_state(rng, K=12,
+                                n_active=0 if case == "no_active_slot" else 8))
+    z = np.array([2.0, 40.0, 77.0])           # a signature no slot holds
+    R = np.diag([0.2, 200.0])
+    wn, wslot, _ = jas.gate(js, jnp.asarray(z), jnp.asarray(R), p)
+    gn, gslot, _ = tas.gate(torch_state(js), t(z), t(R), port(p))
+    assert bool(wn) and int(wslot) == 0
+    assert bool(gn) and int(gslot) == 0
+
+
+def test_gate_f32_signature_overflow(rng):
+    """At f32 the default s_cost = 1e-11 overflows the signature cost of a
+    far signature to +inf: the cost is +inf in both packages, it never
+    passes s_thresh, and a matching slot still wins."""
+    p = jc.EKFParams(capacity=12, dtype=jnp.float32)
+    arrs = random_state(rng, K=12, n_active=8, dtype=np.float32)
+    js = jax_state(arrs)
+    R = np.diag([0.2, 200.0]).astype(np.float32)
+    for sig, want_new in ((3e18, True), (3.0, False)):
+        z = np.array([2.0, 40.0, sig], np.float32)
+        _, ws = jas.gate_costs(js, jnp.asarray(z), jnp.asarray(R), p)
+        _, gs = tas.gate_costs(torch_state(js), t(z), t(R), port(p))
+        np.testing.assert_array_equal(np.isinf(n(gs)), np.isinf(n(ws)))
+        assert np.isinf(n(ws)).any() == want_new
+        wn, wslot, _ = jas.gate(js, jnp.asarray(z), jnp.asarray(R), p)
+        gn, gslot, _ = tas.gate(torch_state(js), t(z), t(R), port(p))
+        assert bool(gn) == bool(wn) == want_new
+        assert int(gslot) == int(wslot)

@@ -4,7 +4,9 @@ ekf_slam_tpu on the CPU: ``checks.full_measurements`` bit-equal to
 ``bench.make_measurements``, ``checks.full_state`` against
 ``bench.make_full_state``, and ``update_chunked`` and one gate + update
 batch at the large-map schedule (rows P·Hᵀ, bf16 P, the SYRK correction)
-at K = 200, M = 256, G = 2: a rank-256 downdate a chunk."""
+at K = 200, M = 256, G = 2: a rank-256 downdate a chunk; and the
+sequential benchmark's chain (chip_smoke.py phase 9b,
+``checks.sequential_chain``) against bench.py's gate + update scan."""
 import dataclasses
 
 import jax
@@ -17,12 +19,15 @@ import bench
 from ekf_slam_tpu.models import batched as jb
 from ekf_slam_tpu.ops.association import gate_batch as j_gate_batch
 from ekf_slam_tpu.state import FilterState as JState
+from ekf_slam_tpu.models import ekf as je
+from ekf_slam_tpu.ops.association import gate as j_gate
 from ekf_slam_tpu_torch.checks import (bench_batch, bench_params, full_state,
                                        full_measurements, record_syrk,
+                                       sequential_chain, sequential_params,
                                        syrk_gap_bound)
 from ekf_slam_tpu_torch.models import batched as tb
 
-from torch_parity_helpers import max_rel, n, port
+from torch_parity_helpers import max_rel, n, port, torch_state
 
 K, M, G = 200, 256, 2
 
@@ -189,3 +194,30 @@ def test_bench_batch_matches_the_benchmarks_batch():
     assert max_rel(got.x, want.x) <= 1e-5
     assert torch.equal(got.P, got.P.T)
     assert int(got.n_active) == K
+
+
+def test_sequential_chain_matches_the_benchmarks_chain():
+    """bench.py's sequential metric (bench.py:195-208) at K = 50, 48 rows,
+    f64: ``sequential_params`` are bench.py's ``_params(K, 1)``; the
+    port's chain from the benchmark's own state and measurements equals
+    the JAX scan of gate + update (x and P within 1e-11 relative), every
+    row associated with its landmark."""
+    K50, rows = 50, 48
+    jp = dataclasses.replace(bench._params(K50, 1), dtype=jnp.float64)
+    tp = sequential_params(K50, dtype=torch.float64)
+    d = dataclasses.asdict(port(jp))
+    assert d == dataclasses.asdict(tp)
+    state = bench.make_full_state(jp, K50)
+    zs = jnp.asarray(bench.make_measurements(state, K50, rows), jnp.float64)
+    rc0, rc1 = jp.rc
+
+    def one_update(st, z):
+        R2 = jnp.diag(jnp.stack([z[0] * rc0, z[1] * rc1])).astype(jp.dtype)
+        _, slot, _ = j_gate(st, z, R2, jp)
+        return je.update(st, z, slot, R2, jp), slot
+
+    want, slots = jax.lax.scan(one_update, state, zs)
+    np.testing.assert_array_equal(n(slots), n(zs[:, 2]).astype(int) - 1)
+    got = sequential_chain(torch_state(state), torch.from_numpy(n(zs)), tp)
+    assert max_rel(got.x, want.x) <= 1e-11
+    assert max_rel(got.P, want.P) <= 1e-11

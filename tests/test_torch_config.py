@@ -82,7 +82,7 @@ def test_ransac_validation_errors_match(kw):
 
 @pytest.mark.parametrize("preset,args", [
     ("ref_compat_uc", (64,)), ("ref_compat_known", (32,)),
-    ("sim_ransac", (720,))])
+    ("sim_ransac", (720,)), ("ref_compat_legacy", (16,))])
 def test_presets_match(preset, args):
     a, b = getattr(jc, preset)(*args), getattr(tc, preset)(*args)
     assert {k: _norm(v) for k, v in dataclasses.asdict(a).items()} == \
@@ -140,6 +140,31 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "ekf_slam_tpu"), (f, mod)
+
+
+def test_exports_match():
+    """The port's __all__ holds every name the JAX package exports but
+    MeshConfig (the distributed layers, a later slice), each bound; the
+    algorithm and extractor registries have the same names; and the
+    exported presets and constants are the port's own."""
+    import ekf_slam_tpu
+    import ekf_slam_tpu_torch
+    want = set(ekf_slam_tpu.__all__) - {"MeshConfig"}
+    assert want <= set(ekf_slam_tpu_torch.__all__)
+    assert "MeshConfig" not in ekf_slam_tpu_torch.__all__
+    for name in ekf_slam_tpu_torch.__all__:
+        assert hasattr(ekf_slam_tpu_torch, name), name
+    assert sorted(ekf_slam_tpu_torch.ALGORITHMS) == sorted(
+        ekf_slam_tpu.ALGORITHMS)
+    assert sorted(ekf_slam_tpu_torch.EXTRACTORS) == sorted(
+        ekf_slam_tpu.EXTRACTORS)
+    assert ekf_slam_tpu_torch.config is tc
+    for name in ("ASSOC_SIGNATURE", "ASSOC_ML", "ASSOC_KNOWN"):
+        assert getattr(ekf_slam_tpu_torch, name) == getattr(ekf_slam_tpu,
+                                                            name)
+    assert ekf_slam_tpu_torch.init_state(
+        ekf_slam_tpu_torch.ref_compat_legacy(4), device="cpu").P.shape == (
+        11, 11)
 
 
 def test_no_cuda_and_no_device_raises(monkeypatch):

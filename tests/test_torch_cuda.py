@@ -481,3 +481,67 @@ def test_session_launches_one_wall_search_per_tick(dev):
     outs = session_on_devices(ep, rp, 8, 512, ("cuda",))
     assert (K.wall_search.launches, K.score_lines.launches) == (8, 0)
     assert int(outs["cuda"].n_active[-1]) > 0
+
+
+# tests/test_sim_session.py:29-32's extractor (the one-seed search), f32
+SIM_RANSAC = dict(line_consensus=60, bearing_window_deg=15.0,
+                  wall_search_timeout=4, table_capacity=32, promote_count=5,
+                  ref_compat=False)
+
+
+@pytest.mark.parametrize("algorithm", ["EKF_SLAM_UC", "EKF_SLAM"])
+def test_sequential_session_on_card_matches_cpu(dev, algorithm):
+    """The JAX package's default session, the sequential filter with the
+    algorithm's preset as constructed (capacity 128, ref_compat=True, f32)
+    and the one-seed wall search, 16 ticks with the same draws on both
+    devices: the same landmark count every tick, poses within 1e-3, and
+    no kernel launched (the path has none)."""
+    from ekf_slam_tpu_torch import ALGORITHMS, RansacParams
+    ep, rp = ALGORITHMS[algorithm](), RansacParams(**SIM_RANSAC)
+    counted = (K.syrk_downdate, G.gate_costs_state, K.score_lines,
+               K.wall_search, K.cov_update, K.pair_gather, K.syrk_gram)
+    for fn in counted:
+        fn.launches = 0
+    outs = session_on_devices(ep, rp, 16, 512, ("cuda", "cpu"))
+    assert [fn.launches for fn in counted] == [0] * len(counted)
+    assert torch.equal(outs["cuda"].n_active.cpu(), outs["cpu"].n_active)
+    assert int(outs["cpu"].n_active[-1]) > 0
+    assert (outs["cuda"].pose.cpu() - outs["cpu"].pose).abs().max() <= 1e-3
+
+
+def test_srekf_session_on_card_matches_cpu(dev):
+    """The QR square-root session (update_mode='srekf'), capacity 64,
+    f32, 16 ticks with the same draws on both devices: the same landmark
+    count every tick, poses within 1e-3."""
+    from ekf_slam_tpu_torch import EKFParams, RansacParams
+    ep = EKFParams(capacity=64, max_obs=8, ref_compat=False,
+                   update_mode="srekf")
+    rp = RansacParams(line_consensus=30, bearing_window_deg=15.0,
+                      wall_search_timeout=4, table_capacity=64,
+                      promote_count=5, ref_compat=False, n_hypotheses=32)
+    outs = session_on_devices(ep, rp, 16, 512, ("cuda", "cpu"))
+    assert torch.equal(outs["cuda"].n_active.cpu(), outs["cpu"].n_active)
+    assert int(outs["cpu"].n_active[-1]) > 0
+    assert (outs["cuda"].pose.cpu() - outs["cpu"].pose).abs().max() <= 1e-3
+
+
+def test_masked_update_on_card_leaves_the_state_bit_unchanged(dev):
+    """On the card a masked-off update of an empty slot under a zero R (a
+    singular Φ) leaves x and P bit for bit as they were, and a slot past
+    the state is clamped (no illegal access)."""
+    from ekf_slam_tpu_torch import EKFParams
+    from ekf_slam_tpu_torch.models import ekf
+    from ekf_slam_tpu_torch.state import init_state
+    p = EKFParams(capacity=6)
+    st = init_state(p, device=dev)
+    x0, P0 = st.x.clone(), st.P.clone()
+    z = torch.zeros(3, device=dev)
+    R = torch.zeros((2, 2), device=dev)
+    got = ekf.update(st, z, 3, R, p, mask=torch.zeros((), dtype=torch.bool,
+                                                      device=dev))
+    far = ekf.update(init_state(p, device=dev), torch.tensor(
+        [2.0, 50.0, 1.0], device=dev), 40, torch.eye(2, device=dev), p)
+    torch.cuda.synchronize()
+    assert torch.equal(got.x.view(torch.int32), x0.view(torch.int32))
+    assert torch.equal(got.P.view(torch.int32), P0.view(torch.int32))
+    assert bool(torch.isfinite(far.P).all())

@@ -1,6 +1,7 @@
 """ekf_slam_tpu_torch RANSAC extraction against ekf_slam_tpu at float64:
-the batched-hypothesis wall search fed the JAX package's own threefry
-draws (lines, ok and the remaining pool equal; floats within 1e-10), the
+the batched-hypothesis wall search and the one-seed-per-round search
+(find_walls) fed the JAX package's own threefry draws (lines, ok and the
+remaining pool equal; floats within 1e-10), the
 plain version of the wall-search kernel against the JAX greedy rounds at
 f64 and f32, the candidate table over several ticks (table and ObsBatch
 equal), write-back and the line-fit helpers; and the on-card check of the
@@ -20,7 +21,7 @@ from ekf_slam_tpu_torch import checks as C
 from ekf_slam_tpu_torch.ops import ransac as tr
 from ekf_slam_tpu_torch.ops import scan as tscan
 
-from torch_parity_helpers import max_rel, n, port, t
+from torch_parity_helpers import find_walls_draws, max_rel, n, port, t
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -172,13 +173,100 @@ def test_update_table_edge_cases_match(rng):
 
 
 def test_sequential_wall_search_raises(rng):
+    """Named for the NotImplementedError extract raised on n_hypotheses=0
+    before the one-seed search was ported.  It now runs; what still
+    raises is a set of draws of the wrong shape, which find_walls cannot
+    index by round."""
     p = port(_rp(n_hypotheses=0))
     js = _scan(rng, np.zeros(3))
-    with pytest.raises(NotImplementedError, match="sequential"):
-        tr.extract(tr.init_table(p, device="cpu"),
-                   tscan.Scan(*(t(v) for v in js)),
-                   torch.zeros(9, dtype=torch.float64),
-                   torch.tensor(0, dtype=torch.int32), p, 8)
+    obs, _ = tr.extract(tr.init_table(p, device="cpu"),
+                        tscan.Scan(*(t(v) for v in js)),
+                        torch.zeros(9, dtype=torch.float64),
+                        torch.tensor(0, dtype=torch.int32), p, 8,
+                        draws=find_walls_draws(jax.random.PRNGKey(0), 4, B))
+    assert obs.valid.shape == (8,)
+    pts = tscan.scan_to_world(tscan.Scan(*(t(v) for v in js)),
+                              torch.zeros(3, dtype=torch.float64))
+    bad = torch.rand((4, B // 2), dtype=torch.float64)
+    with pytest.raises((IndexError, RuntimeError)):
+        tr.find_walls(pts, t(js.valid), p, draws=(bad, bad))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(ref_compat=True), dict(refine_passes=2),
+    dict(split_gap=1.2, split_kink_deg=10.0, max_fit_rms=0.05)],
+    ids=["default", "ref_compat", "refine", "split"])
+@pytest.mark.parametrize("seed", [3, 11])
+def test_find_walls_matches(rng, kw, seed):
+    """The reference's one-seed-per-round search fed JAX's own threefry
+    draws: ok and the remaining pool equal, lines within 1e-10 and fit
+    statistics within 1e-10 relative, with the ref_compat bearing (atand
+    of y/x, a two-quadrant window) and with the refits, splits and RMS
+    gate.  The ref_compat case keeps the beams of one half-turn: the
+    two-quadrant window of a full turn holds two opposite walls, and no
+    seed line then finds a wall, in either package."""
+    p = _rp(n_hypotheses=0, **kw)
+    pose = np.array([0.4, -0.3, 25.0])
+    pts, valid = _world_points(rng, pose)
+    if p.ref_compat:
+        valid = valid & (jnp.arange(B) < B // 2)
+    key = jax.random.PRNGKey(seed)
+    want = jr.find_walls(pts, valid, key, p)
+    got = tr.find_walls(t(pts), t(valid), port(p),
+                        draws=find_walls_draws(key, p.wall_search_timeout, B))
+    lines, ok, remaining, stats = (n(v) for v in got)
+    np.testing.assert_array_equal(ok, n(want[1]))
+    np.testing.assert_array_equal(remaining, n(want[2]))
+    assert ok.any()
+    np.testing.assert_allclose(lines[ok], n(want[0])[ok], rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(stats[ok], n(want[3])[ok], rtol=1e-10,
+                               atol=1e-12)
+    # a rejected round's fit may be a near-vertical line (slope -22 in
+    # the ref_compat case) whose denominator Σx² − (Σx)²/n cancels, so
+    # the two packages' summation orders part at 1.4e-10 relative there
+    np.testing.assert_allclose(lines[~ok], n(want[0])[~ok], rtol=1e-8,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("ref_compat", [False, True])
+def test_extract_sequential_search_matches(rng, ref_compat):
+    """extract with n_hypotheses=0 (the JAX default) over six ticks of a
+    moving pose, each tick's find_walls draws JAX's own: table and
+    ObsBatch equal, as for the batched search."""
+    p = _rp(n_hypotheses=0, ref_compat=ref_compat)
+    tp = port(p)
+    jtab, ttab = jr.init_table(p), tr.init_table(tp, device="cpu")
+    K = 6
+    x = np.zeros(3 + 2 * K)
+    key = jax.random.PRNGKey(7)
+    extract = jax.jit(jr.extract, static_argnums=(5, 6))
+    for tick in range(6):
+        pose = np.array([0.05 * tick, 0.02 * tick, 3.0 * tick])
+        x[:3] = pose
+        na = min(tick, K)
+        x[3:3 + 2 * na] = rng.uniform(-3, 3, 2 * na)
+        js = _scan(rng, pose)
+        key, sub = jax.random.split(key)
+        jobs, jtab = extract(jtab, js, jnp.asarray(x),
+                             jnp.asarray(na, jnp.int32), sub, p, 8)
+        tobs, ttab = tr.extract(ttab, tscan.Scan(*(t(v) for v in js)),
+                                torch.from_numpy(x),
+                                torch.tensor(na, dtype=torch.int32), tp, 8,
+                                draws=find_walls_draws(
+                                    sub, p.wall_search_timeout, B))
+        for f in ("observe", "index", "fresh", "used"):
+            np.testing.assert_array_equal(n(getattr(ttab, f)),
+                                          n(getattr(jtab, f)), err_msg=f)
+        np.testing.assert_allclose(n(ttab.loc), n(jtab.loc), atol=1e-10)
+        np.testing.assert_array_equal(n(tobs.valid), n(jobs.valid))
+        np.testing.assert_array_equal(n(tobs.index), n(jobs.index))
+        for f in ("rng", "bearing", "loc", "R"):
+            np.testing.assert_allclose(n(getattr(tobs, f)),
+                                       n(getattr(jobs, f)), rtol=1e-10,
+                                       atol=1e-10, err_msg=f)
+    if not ref_compat:
+        assert n(ttab.index).max() > 0             # something was promoted
 
 
 # examples/large_world_slam.py:76-77's extractor settings (refits, both

@@ -3,9 +3,12 @@ ekf_slam_tpu's on the CPU.
 
 Both sessions run the batched odometry-driven tick (rows P·Hᵀ + SYRK
 correction, batched-hypothesis extractor; and the kernel path: fused
-gate, pair gather, gemm correction through cov_update), and the
+gate, pair gather, gemm correction through cov_update), the
 general-factor square-root tick (update_mode='srekf_fast', with its
-periodic recompression), over the same simulated sequence.  The JAX session draws its extractor randomness from
+periodic recompression), the sequential tick of the JAX package's
+default session (EKF_SLAM_UC and EKF_SLAM, the one-seed wall search) and
+the QR square-root tick (update_mode='srekf'), over the same simulated
+sequence.  The JAX session draws its extractor randomness from
 threefry; the port is handed exactly those draws (session.py:320 then
 ransac.py:314-325), so the two runs take the same decisions tick by
 tick.  Also: the simulator's noise-free ray cast, the padded initial
@@ -26,7 +29,7 @@ from ekf_slam_tpu_torch import config as tc
 from ekf_slam_tpu_torch import convert
 from ekf_slam_tpu_torch.sim import world as tw
 
-from torch_parity_helpers import max_rel, n, port, t
+from torch_parity_helpers import find_walls_draws, max_rel, n, port, t
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -226,11 +229,22 @@ def test_init_carry_matches(syrk):
     (dict(ekf=dict(guard_max_jump=1.0)), "guard"),
 ])
 def test_modes_of_later_slices_raise(kw, match):
+    """ICP/fused control, map maintenance and the fault guard raise,
+    naming the mode.  The two update modes this test listed as later
+    slices, 'sequential' and 'srekf', are ported: they construct and
+    step instead."""
     kw = dict(kw)
     ep = tc.EKFParams(**{"update_mode": "batched", **kw.pop("ekf", {})})
+    rp = tc.RansacParams(n_hypotheses=8)
+    if match == "update_mode":
+        sess = TSession(ekf_params=ep, ransac_params=rp, device="cpu", **kw)
+        carry, out = sess.step(sess.init_carry(), torch.zeros(3),
+                               torch.full((B,), 2.0),
+                               torch.arange(B) * (360.0 / B))
+        assert out.pose.shape == (3,) and carry.sr_tick is None
+        return
     with pytest.raises(NotImplementedError, match=match):
-        TSession(ekf_params=ep, ransac_params=tc.RansacParams(n_hypotheses=8),
-                 device="cpu", **kw)
+        TSession(ekf_params=ep, ransac_params=rp, device="cpu", **kw)
 
 
 T_SR = 60
@@ -331,6 +345,168 @@ def test_init_carry_srekf_fast_matches():
                       device="cpu").init_carry(first_odom=odo)
     assert tcarry.filt.P.shape == (ep.dim + 8,) * 2
     assert tcarry.sr_tick == int(jcarry.sr_tick) == 0
+    for f in tcarry.filt._fields:
+        np.testing.assert_allclose(n(getattr(tcarry.filt, f)),
+                                   n(getattr(jcarry.filt, f)), rtol=1e-15,
+                                   atol=0, err_msg=f)
+
+
+def jax_seq_draws(seed: int, ticks: int, rounds: int):
+    """The (u, s) pairs [rounds, B] the JAX session's one-seed wall search
+    draws on each tick: key, sub = split(key), then round r's k_pick,
+    k_sample = split(split(sub, rounds)[r]) (session.py:320,
+    ransac.py:244-262)."""
+    key, out = jax.random.PRNGKey(seed), []
+    for _ in range(ticks):
+        key, sub = jax.random.split(key)
+        out.append(find_walls_draws(sub, rounds, B))
+    return out
+
+
+def _seq_rp():
+    """The extractor of the sequential sessions: _params' settings with
+    the one-seed wall search (n_hypotheses 0, the default)."""
+    return dataclasses.replace(_params(jnp.float64)[1], n_hypotheses=0)
+
+
+def _run_pair(traj, algorithm, ep, rp, draws, collect_nis=True):
+    js = JSession(algorithm=algorithm, ekf_params=ep, ransac_params=rp,
+                  seed=SEED, collect_nis=collect_nis)
+    c0 = js.init_carry(first_odom=traj.odom[0])
+    jcarry, jouts = js.run(traj.odom, traj.ranges, traj.beam_angles,
+                           carry=c0)
+    ts = TSession(algorithm=algorithm, ekf_params=port(ep),
+                  ransac_params=port(rp), seed=SEED,
+                  collect_nis=collect_nis, device="cpu")
+    tc0 = convert.carry_from_numpy(jax.tree.map(np.asarray, c0),
+                                   device="cpu")
+    tcarry, touts = ts.run(np.array(traj.odom), np.array(traj.ranges),
+                           t(traj.beam_angles), carry=tc0, draws=draws)
+    return (jcarry, jouts), (tcarry, touts)
+
+
+@pytest.mark.parametrize("algorithm", ["EKF_SLAM_UC", "EKF_SLAM"])
+def test_session_parity_sequential_f64(traj, algorithm):
+    """The JAX package's default session, update_mode='sequential' with
+    the algorithm's preset as constructed (capacity 128, max_obs 16,
+    ref_compat=True: the signature gate for EKF_SLAM_UC, known
+    association with the loop-counter slots for EKF_SLAM) at f64, and the
+    one-seed wall search: per-tick pose ≤ 1e-9, every decision equal,
+    final x and P ≤ 1e-9 relative, NIS ≤ 1e-9 relative."""
+    from ekf_slam_tpu.session import ALGORITHMS as JALG
+    ep = JALG[algorithm](dtype=jnp.float64)
+    assert (ep.update_mode, ep.capacity, ep.ref_compat) == (
+        "sequential", 128, True)
+    rp = _seq_rp()
+    (jc_, jo), (tc_, to) = _run_pair(
+        traj, algorithm, ep, rp,
+        jax_seq_draws(SEED, T, rp.wall_search_timeout))
+    _same_decisions(jo, to)
+    assert np.abs(n(to.pose) - n(jo.pose)).max() <= 1e-9
+    assert max_rel(tc_.filt.x, jc_.filt.x) <= 1e-9
+    assert max_rel(tc_.filt.P, jc_.filt.P) <= 1e-9
+    assert tc_.filt.P.shape == (ep.dim, ep.dim)          # not padded
+    nis_t, nis_j = n(to.nis), n(jo.nis)
+    np.testing.assert_array_equal(np.isnan(nis_t), np.isnan(nis_j))
+    ok = np.isfinite(nis_j)
+    if ok.any():
+        assert max_rel(nis_t[ok], nis_j[ok]) <= 1e-9
+
+
+def test_session_parity_srekf_f64(traj):
+    """update_mode='srekf', the QR square-root session (the batched
+    extractor), at f64: per-tick pose ≤ 1e-9, every decision equal, final
+    x and factor L (after the sign fix) ≤ 1e-9 relative, NIS from the
+    triangular strips ≤ 1e-9 relative; L lower triangular, diag ≥ 0,
+    inactive rows exactly 0."""
+    ep = jc.EKFParams(capacity=16, max_obs=8, ref_compat=False,
+                      update_mode="srekf", dtype=jnp.float64)
+    rp = _params(jnp.float64)[1]
+    (jc_, jo), (tc_, to) = _run_pair(traj, "EKF_SLAM_UC", ep, rp,
+                                     jax_draws(SEED, T))
+    _same_decisions(jo, to)
+    assert np.abs(n(to.pose) - n(jo.pose)).max() <= 1e-9
+    assert max_rel(tc_.filt.x, jc_.filt.x) <= 1e-9
+    assert max_rel(tc_.filt.P, jc_.filt.P) <= 1e-9
+    L = n(tc_.filt.P)
+    assert L.shape == (ep.dim, ep.dim)
+    assert np.array_equal(L, np.tril(L)) and (np.diag(L) >= 0).all()
+    assert np.all(L[3 + 2 * int(tc_.filt.n_active):] == 0)
+    nis_t, nis_j = n(to.nis), n(jo.nis)
+    np.testing.assert_array_equal(np.isnan(nis_t), np.isnan(nis_j))
+    ok = np.isfinite(nis_j)
+    assert ok.any() and max_rel(nis_t[ok], nis_j[ok]) <= 1e-9
+
+
+def test_default_session_runs():
+    """SlamSession(device='cpu') with no other argument (EKF_SLAM_UC, f32,
+    capacity 128, the sequential filter, RansacParams() with the one-seed
+    search) runs a sequence without raising: finite state, the unpadded
+    f32 P."""
+    sess = TSession(device="cpu")
+    assert sess.ekf_params.update_mode == "sequential"
+    assert sess.ransac_params.n_hypotheses == 0
+    cfg = tc.SimConfig(n_beams=B, max_range=12.0)
+    tr = tw.simulate(tw.rectangle_room(4.0, 3.0, device="cpu"),
+                     tw.circle_controls(4, 0.05, 3.0, device="cpu"), cfg,
+                     torch.Generator().manual_seed(0))
+    carry, outs = sess.run(tr.odom, tr.ranges, tr.beam_angles)
+    assert outs.pose.shape == (4, 3)
+    assert carry.filt.P.shape == (259, 259)
+    assert carry.filt.P.dtype == torch.float32
+    assert bool(torch.isfinite(carry.filt.P).all())
+
+
+@pytest.mark.parametrize("mode", ["sequential", "srekf"])
+def test_carry_from_numpy_new_modes(traj, mode):
+    """convert.carry_from_numpy takes a JAX carry of the sequential and
+    the QR square-root session after three ticks (the factor in the P
+    field under 'srekf'): every leaf equal, no tick counter, and the
+    port's next tick from it equals JAX's next tick (pose ≤ 1e-9)."""
+    ep = jc.EKFParams(capacity=16, max_obs=8, ref_compat=False,
+                      update_mode=mode, dtype=jnp.float64)
+    rp = _seq_rp() if mode == "sequential" else _params(jnp.float64)[1]
+    js = JSession(ekf_params=ep, ransac_params=rp, seed=SEED)
+    jcarry, _ = js.run(traj.odom[:4], traj.ranges[:4], traj.beam_angles,
+                       carry=js.init_carry(first_odom=traj.odom[0]))
+    tcarry = convert.carry_from_numpy(jax.tree.map(np.asarray, jcarry),
+                                      device="cpu")
+    assert tcarry.sr_tick is None
+    assert int(tcarry.filt.n_active) > 0
+    for part in ("filt", "table"):
+        for f in getattr(tcarry, part)._fields:
+            np.testing.assert_array_equal(
+                n(getattr(getattr(tcarry, part), f)),
+                n(getattr(getattr(jcarry, part), f)), err_msg=f)
+    if mode == "srekf":
+        L = n(tcarry.filt.P)
+        assert np.array_equal(L, np.tril(L))
+    draws = (jax_seq_draws(SEED, 5, rp.wall_search_timeout)
+             if mode == "sequential" else jax_draws(SEED, 5))[4]
+    jnext, jo = js.step(jcarry, traj.odom[4], traj.ranges[4],
+                        traj.beam_angles)
+    ts = TSession(ekf_params=port(ep), ransac_params=port(rp), seed=SEED,
+                  device="cpu")
+    tnext, to = ts.step(tcarry, np.array(traj.odom[4]),
+                        np.array(traj.ranges[4]), t(traj.beam_angles),
+                        draws=draws)
+    assert np.abs(n(to.pose) - n(jo.pose)).max() <= 1e-9
+    assert int(tnext.filt.n_active) == int(jnext.filt.n_active)
+
+
+def test_init_carry_srekf_matches():
+    """The QR square-root initial carry: the Cholesky factor of the
+    unpadded initial P, the same as JAX's, and no tick counter."""
+    ep = jc.EKFParams(capacity=16, max_obs=8, ref_compat=False,
+                      update_mode="srekf", dtype=jnp.float64)
+    rp = _params(jnp.float64)[1]
+    odo = np.array([0.2, -0.1, 15.0])
+    jcarry = JSession(ekf_params=ep, ransac_params=rp).init_carry(
+        first_odom=odo)
+    tcarry = TSession(ekf_params=port(ep), ransac_params=port(rp),
+                      device="cpu").init_carry(first_odom=odo)
+    assert tcarry.filt.P.shape == (ep.dim, ep.dim)
+    assert tcarry.sr_tick is None and jcarry.sr_tick is None
     for f in tcarry.filt._fields:
         np.testing.assert_allclose(n(getattr(tcarry.filt, f)),
                                    n(getattr(jcarry.filt, f)), rtol=1e-15,

@@ -3,6 +3,7 @@ port) against ekf_slam_tpu (the JAX reference): the same inputs, made with
 numpy from a seed, go through both packages on the CPU."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -84,3 +85,15 @@ def torch_state(js: JState) -> TState:
     """The port's state holding the same values as a JAX state (fresh
     tensors: the port updates P in place)."""
     return TState(*(t(getattr(js, f)) for f in TState._fields))
+
+
+def find_walls_draws(key, T: int, B: int):
+    """The draws JAX find_walls makes from ``key`` (ransac.py:244-262,
+    284-285): round r's (u, s) [B] from split(split(key, T)[r]), stacked
+    to [T, B] each, as the port's find_walls takes them."""
+    us, ss = [], []
+    for rkey in jax.random.split(key, T):
+        k_pick, k_sample = jax.random.split(rkey)
+        us.append(jax.random.uniform(k_pick, (B,)))
+        ss.append(jax.random.uniform(k_sample, (B,)))
+    return t(jnp.stack(us)), t(jnp.stack(ss))
