@@ -78,7 +78,22 @@ Phases (each prints one line; any failure exits non-zero with no result):
    own f32-against-f64 gap; then the recompression's QR branch on a
    factor whose Gram is singular, on the card and on the CPU (the
    Cholesky gives NaN, the QR branch's result is taken, finite, lower
-   triangular, within 1e-4 of the CPU's);
+   triangular, within 1e-4 of the CPU's); then the control and
+   robustness modes card against CPU (capacity 256, 32 ticks, the same
+   draws): ICP and fused control with the campaign's ICP settings (the
+   fused run with scans 12-16 blanked, so both choices occur), the
+   guard (3 cm) with the odometry of ticks 10 and 20 corrupted once on
+   the CPU by utils.faults.corrupt_odometry (so it rejects ticks), and
+   maintenance (merge radius 4.9 m, trace cap 3.0) on the tuned path
+   and on srekf_fast: launches (srekf_fast: one K6 per recompression and
+   per evicting tick), n_active equal every tick, the decisions (ICP
+   choice, rejected ticks, evictions) equal every tick
+   (checks.decisions_differ), pose within 1e-3 (m and rad); then the
+   same maintenance runs on the card alone with PyTorch's sync debug
+   mode on, tick by tick: exactly one host sync a tick at
+   models/maintenance.py (the eviction's read of the drop count), and on
+   srekf_fast one more at models/srekf_fast.py for each recompression
+   (each evicting tick's and the schedule's), no other;
 6. the tuned path at full width: the 10k-landmark batched session
    (D = 20480 padded, bf16 P, rows + syrk) for 64 ticks of the flagship
    simulator run, with every kernel counter set to 0 just before and read
@@ -165,7 +180,42 @@ Phases (each prints one line; any failure exits non-zero with no result):
    host sync, one wall_search launch a tick and no other kernel, L lower
    triangular with diag ≥ 0 and its inactive rows exactly 0; the median
    tick, a profile line, and the tick's two QRs timed alone with their
-   share of the tick.
+   share of the tick;
+10. the large-world campaign session at full width
+   (experiments/chip_r5_world.py's, the one cut: the first 400 ticks of
+   the route): floorplan_world(16, 16, seed=0), serpentine_waypoints,
+   waypoint_controls(step=0.25), 1024 beams, odometry heading noise
+   0.5°; checks.campaign_params(10000, float32, 'fused', 0.5) with
+   tuned_params (bf16 P [20480²], SYRK, max_obs 24, guard 0.5 m, fitted
+   R, NH = 192, a 20,000-entry table); SlamSession(control_source=
+   'fused', ICP pairing 0.4 m, gates 200 inliers and 0.08 m RMS,
+   maintain_merge_radius 0.4, collect_nis).  A sync census of three
+   warm-up ticks (exactly one host sync a tick, maintenance's read), then
+   the run with the counters set to 0 just before and read just after:
+   one K1 and one wall_search launch a tick and no other, finite state,
+   landmarks mapped, ICP taken on most ticks, aligned ATE (sim.world.
+   align_se2) < 1.5 m; on every tick of it a host span (perf_counter)
+   and a CUDA-event interval around ICP's control, the guard's snapshot
+   and verdict, and maintenance, whose medians are each feature's cost
+   a tick; it prints the median tick (CUDA events),
+   map_accuracy against cluster_feet(true_feet(world), 0.5), the NIS
+   mean, evictions and rejected ticks, a profile line, ICP's device
+   operations and time a call, the guard's passes against their 6·|P|
+   HBM bound and duplicate_mask's time; then the first 32 ticks again
+   with every feature on, the guard off, maintenance off and odometry
+   control, four runs each in turns, for what each feature costs a tick
+   (resolved only where every run without the feature is faster than
+   every run with all on);
+10b. eviction at full width: checks.evict_case (bench.py's full state
+   at K = 10000, all slots active, per-slot variances spread) with about
+   a quarter of the slots dropped by prune_by_uncertainty and
+   duplicate_mask: the dense eviction on f32 P [20003²] and bf16 P
+   [20480²], its kept block bit-equal to the gather of the kept rows and
+   columns and zero past them, timed against its HBM bound; the factored
+   eviction on S [20067²] f32 (the state's Cholesky factor): one K6
+   launch, the new factor finite and lower triangular with the freed
+   rows 0, and the Gram of 64 of its kept rows within checks.gram_compare's
+   limit of the f64 Gram of the old factor's kept rows.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  A kernel's `launches` in the JSON is its
@@ -182,7 +232,9 @@ now runs inside wall_search on every path (its side calls are phase
 3's).  Every entry also has
 `launch_floor_ms`, `floor_bound_ms` and `floor_bound_by` ("launch" where
 the floor is the larger): the bound raised to the launch floor, beside
-`bound_ms`.  This script imports nothing of JAX or of ekf_slam_tpu.
+`bound_ms`.  K1's and wall_search's entries also carry
+`campaign_launches` (phase 10's counts), K6's `eviction_launches`
+(phase 10b's).  This script imports nothing of JAX or of ekf_slam_tpu.
 """
 import dataclasses
 import json
@@ -195,6 +247,8 @@ import subprocess
 import sys
 import time
 import warnings
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -520,8 +574,11 @@ def main():
           == HERE, f"ekf_slam_tpu_torch resolved outside {HERE}")
     from ekf_slam_tpu_torch import session as session_mod
     from ekf_slam_tpu_torch.models import srekf_fast as srekf_fast_mod
-    from ekf_slam_tpu_torch.checks import (bearing_gap_ulps, bench_batch,
+    from ekf_slam_tpu_torch.checks import (CAMPAIGN_SESSION,
+                                           bearing_gap_ulps, bench_batch,
                                            bench_params, bf16_ulps,
+                                           campaign_params, campaign_route,
+                                           decisions_differ, evict_case,
                                            full_f32_matmul,
                                            full_measurements, full_state,
                                            gate_case, gate_tolerance,
@@ -532,6 +589,7 @@ def main():
                                            record_syrk, score_lines_case,
                                            sequential_chain,
                                            sequential_params,
+                                           session_inputs,
                                            session_on_devices, syrk_case,
                                            syrk_compare, syrk_gap_bound,
                                            tf32_single_pass,
@@ -540,7 +598,11 @@ def main():
     from ekf_slam_tpu_torch.ops.ransac import wall_search_ref
     from ekf_slam_tpu_torch.ops.angles import _DEG2RAD, atan2d
     from ekf_slam_tpu_torch.ops.blocked_chol import chol_for_state
+    from ekf_slam_tpu_torch.ops.icp import icp
+    from ekf_slam_tpu_torch.ops.scan import scan_from_ranges, to_cartesian
+    from ekf_slam_tpu_torch.models import maintenance as MT
     from ekf_slam_tpu_torch.state import FilterState
+    from ekf_slam_tpu_torch.utils.faults import corrupt_odometry, guarded
     from ekf_slam_tpu_torch.ops import gating as G
     from ekf_slam_tpu_torch.ops import kernels as K
     from ekf_slam_tpu_torch.sim import world as W
@@ -982,6 +1044,145 @@ def main():
         f"Cholesky gave NaN and the QR branch was taken on card and CPU, "
         f"factor finite and lower triangular, card/CPU max|Δ| {dq:.3e}")
     del qr, Lq
+
+    # the control and robustness modes, card against CPU (capacity 256, f32,
+    # 32 ticks, the same draws): ICP and fused control with the campaign's
+    # ICP settings (the fused run with scans 12-16 blanked, so both choices
+    # occur), the guard (3 cm) with the odometry of ticks 10 and 20 moved
+    # 0.71 m by corrupt_odometry (injected once on the CPU, handed to both),
+    # and maintenance (merge radius 4.9 m, trace cap 3.0) on the tuned path
+    # and on srekf_fast; each run's decisions tick by tick must be equal
+    ICP_KW = {k: v for k, v in CAMPAIGN_SESSION.items()
+              if k.startswith("icp")}
+    MAINT_KW = dict(maintain_merge_radius=4.9, maintain_max_trace=3.0)
+    T5R = 32
+
+    def blanked(traj_):
+        r = traj_.ranges.clone()
+        r[12:17] = float("nan")
+        return traj_.odom, r
+
+    def corrupted(traj_):
+        hit = torch.zeros(T5R, dtype=torch.bool)
+        hit[[10, 20]] = True
+        noise = torch.zeros(T5R, 3)
+        noise[10] = torch.tensor([0.5, -0.5, 0.0])
+        noise[20] = torch.tensor([-0.5, 0.5, 0.0])
+        return corrupt_odometry(traj_.odom, None, 0.0, magnitude=1.0,
+                                hit=hit, noise=noise), traj_.ranges
+    TUNED5 = dict(pht_mode="rows", correction="syrk")
+    for name, kw, ekw, skw, edit in (
+            ("icp", TUNED5, {}, dict(control_source="icp", **ICP_KW), None),
+            ("fused", TUNED5, {}, dict(control_source="fused", **ICP_KW),
+             blanked),
+            ("guard", TUNED5, dict(guard_max_jump=0.03), {}, corrupted),
+            ("maintenance tuned", TUNED5, {}, MAINT_KW, None),
+            ("maintenance srekf_fast", dict(SR_PATH, sr_noise_buffer=16), {},
+             MAINT_KW, None)):
+        ep5r, rp5r = slice_params(torch, 256, **kw)
+        ep5r = dataclasses.replace(ep5r, **ekw)
+        for fn in counted.values():
+            fn.launches = 0
+        outs5r = session_on_devices(ep5r, rp5r, T5R, 1024, ("cuda", "cpu"),
+                                    session_kw=skw, edit=edit)
+        got5r = {k: fn.launches for k, fn in counted.items()}
+        oc, oh = outs5r["cuda"], outs5r["cpu"]
+        sr5 = ep5r.update_mode == "srekf_fast"
+        want5r = {k: 0 for k in got5r}
+        want5r["wall_search"] = T5R
+        want5r["pair_gather" if sr5 else "syrk_downdate"] = T5R
+        if sr5:     # the schedule's recompressions and each eviction's
+            want5r["syrk_gram"] = (T5R // ep5r.sr_noise_buffer
+                                   + int((oc.n_evicted > 0).sum()))
+        check(got5r == want5r, f"{name} on the card launched {got5r}, "
+              f"expected {want5r}")
+        na_c, na_h = oc.n_active.cpu(), oh.n_active
+        check(torch.equal(na_c, na_h), f"{name}: n_active differs: card "
+              f"{na_c.tolist()} cpu {na_h.tolist()}")
+        differ = decisions_differ(oc, oh)
+        check(not any(differ.values()), f"{name}: the card and the CPU "
+              f"decided differently at ticks {differ}")
+        dpos, dhead, worst = pose_gaps(oc.pose.cpu(), oh.pose)
+        check(dpos <= 1e-3 and dhead <= 1e-3, f"{name}: card/CPU pose "
+              f"differ by {dpos} m, {dhead} rad (tick {worst})")
+        if name == "icp":
+            check(not oh.u[0].any() and not oc.u[0].any(),
+                  "icp: the first tick's control is not 0")
+            what = "first tick's u 0 on both"
+        elif name == "fused":
+            took = oh.icp_ok
+            check(bool(took.any()) and not bool(took.all())
+                  and not bool(took[12:18].any()),
+                  f"fused: ICP taken on {took.int().tolist()}")
+            what = (f"ICP taken on {int(took.sum())} of {T5R} ticks, the "
+                    f"odometry on ticks "
+                    f"{torch.nonzero(~took).flatten().tolist()}")
+        elif name == "guard":
+            rej = torch.nonzero(~oh.guard_ok).flatten().tolist()
+            check(len(rej) > 0, "guard: no tick rejected")
+            what = f"ticks rejected on both: {rej}"
+        else:
+            ev = oh.n_evicted
+            check(bool((ev > 0).any()), f"{name}: nothing evicted")
+            what = (f"{int(ev.sum())} landmarks evicted in "
+                    f"{int((ev > 0).sum())} ticks, the same each tick")
+        log(f"phase 5 {name} card vs CPU ok: {T5R} ticks, capacity 256, "
+            f"{what}; decisions equal every tick, n_active equal (final "
+            f"{int(na_h[-1])}), max position diff {dpos:.3e} m, heading "
+            f"{dhead:.3e} rad (tick {worst}); card launches "
+            f"{ {k: v for k, v in got5r.items() if v} }")
+    del outs5r, oc, oh
+
+    # sync census of maintenance, tick by tick, on the card, on the tuned
+    # path and on srekf_fast: exactly one read at models/maintenance.py a
+    # tick (the drop count), and on srekf_fast one at models/srekf_fast.py
+    # (the recompression's finiteness flag) for each recompression the
+    # tick runs, an eviction's and the schedule's every sr_noise_buffer
+    # ticks; nothing else
+    for name, kw in (("tuned", TUNED5),
+                     ("srekf_fast", dict(SR_PATH, sr_noise_buffer=16))):
+        ep5c, rp5c = slice_params(torch, 256, **kw)
+        sr5 = ep5c.update_mode == "srekf_fast"
+        odo5c, rng5c, ang5c, dr5c = session_inputs(rp5c, T5R, 1024)
+        odo5c, rng5c, ang5c = (a_.to(dev) for a_ in (odo5c, rng5c, ang5c))
+        dr5c = [(u.to(dev), s_.to(dev)) for u, s_ in dr5c]
+        sess5c = tp.SlamSession(ekf_params=ep5c, ransac_params=rp5c,
+                                **MAINT_KW)
+        carry5c = sess5c.init_carry(first_odom=odo5c[0])
+        torch.cuda.synchronize()
+        census5c, ev5c = [], []
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for t in range(T5R):
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    carry5c, o = sess5c.step(carry5c, odo5c[t], rng5c[t],
+                                             ang5c, draws=dr5c[t])
+                census5c.append(sorted(
+                    w.filename.split("ekf_slam_tpu_torch/")[-1]
+                    for w in caught if "synchroniz" in str(w.message)))
+                ev5c.append(o.n_evicted)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ev5c = torch.stack(ev5c).cpu()
+        n_rec = [int(sr5) * (int(ev5c[t] > 0)
+                             + int((t + 1) % ep5c.sr_noise_buffer == 0))
+                 for t in range(T5R)]
+        want5c = [["models/maintenance.py"]
+                  + ["models/srekf_fast.py"] * n_rec[t] for t in range(T5R)]
+        check(census5c == want5c, f"maintenance {name}: host syncs a tick "
+              f"{census5c}, expected {want5c}")
+        check(bool((ev5c > 0).any()), f"maintenance {name} census: nothing "
+              f"evicted")
+        log(f"phase 5 maintenance {name} sync census ok: {T5R} ticks, "
+            f"{sum(map(len, census5c))} host syncs: one at "
+            f"models/maintenance.py every tick"
+            + (f", one at models/srekf_fast.py for each of the "
+               f"{sum(n_rec)} recompressions (the "
+               f"{int((ev5c > 0).sum())} evicting ticks' and the "
+               f"{T5R // ep5c.sr_noise_buffer} scheduled)" if sr5 else "")
+            + f"; {int((ev5c > 0).sum())} ticks evicted, no other sync")
+        del sess5c, carry5c
 
     # -- 6. the tuned path at full width -------------------------------------------
     T = 64
@@ -1716,6 +1917,375 @@ def main():
         f"tick median {run9c['tick_median']:.3f} ms; card: {card}")
     del run9c, L9c, pre_p, pre_u
     torch.cuda.empty_cache()
+
+    # -- 10. the large-world campaign session at full width -----------------
+    # experiments/chip_r5_world.py's session at capacity 10000: the 16 × 16
+    # room floorplan (~2,000 walls), its serpentine route at 0.25 m a tick,
+    # 1024 beams, odometry heading noise 0.5°, checks.campaign_params with
+    # tuned_params (bf16 P [20480²], SYRK, max_obs 24, guard 0.5 m, the
+    # fitted R, NH = 192, a 20,000-entry table), fused control with the
+    # campaign's ICP gates and maintenance with merge radius 0.4.  One cut:
+    # the first 400 ticks of the route
+    T10, T10W = 400, 32
+    world10, ctrl10, start10 = campaign_route(16, T10 + T_PROF)
+    world10 = W.World(world10.segments.to(dev, torch.float32))
+    cfg10 = tp.SimConfig(n_beams=1024, max_range=10.0, range_noise_std=0.01,
+                         odom_xy_noise_std=0.004, odom_theta_noise_std=0.5)
+    g10 = torch.Generator(device=dev)
+    g10.manual_seed(0)
+    traj10 = W.simulate(world10, torch.tensor(ctrl10, dtype=torch.float32,
+                                              device=dev),
+                        cfg10, g10, start_pose=tuple(start10))
+    ep10, rp10 = campaign_params(10000, torch.float32, "fused", 0.5)
+    check((ep10.pht_mode, ep10.cov_dtype, ep10.correction, ep10.max_obs,
+           ep10.guard_max_jump, ep10.noise_model, rp10.n_hypotheses,
+           rp10.table_capacity)
+          == ("rows", torch.bfloat16, "syrk", 24, 0.5, "fit", 192, 20000),
+          f"campaign configuration changed: {ep10}, {rp10}")
+    sess_kw10 = dict(control_source="fused", collect_nis=True,
+                     **CAMPAIGN_SESSION)
+
+    def campaign_run(ep_, T_, hook=None, **kw_):
+        """T_ ticks of the route from its start through a fresh session
+        (handed to ``hook`` first, if given); the per-tick CUDA-event
+        times and stacked outputs."""
+        skw = dict(sess_kw10, **kw_)
+        s_ = tp.SlamSession(ekf_params=ep_, ransac_params=rp10, seed=1,
+                            **skw)
+        if hook is not None:
+            hook(s_)
+        c_ = s_.init_carry(first_odom=traj10.odom[0], init_pose=start10,
+                           n_beams=(1024 if skw["control_source"] != "odometry"
+                                    else None))
+        ev_ = [torch.cuda.Event(enable_timing=True) for _ in range(T_ + 1)]
+        o_ = []
+        ev_[0].record()
+        for t_ in range(T_):
+            c_, out_ = s_.step(c_, traj10.odom[t_], traj10.ranges[t_],
+                               traj10.beam_angles)
+            ev_[t_ + 1].record()
+            o_.append(out_)
+        torch.cuda.synchronize()
+        return s_, c_, session_mod.stack_outputs(o_), [
+            ev_[t_].elapsed_time(ev_[t_ + 1]) for t_ in range(T_)]
+
+    # warm-up and a sync census of three ticks on a first carry
+    sess10 = tp.SlamSession(ekf_params=ep10, ransac_params=rp10, seed=1,
+                            **sess_kw10)
+    warm = sess10.init_carry(first_odom=traj10.odom[0], init_pose=start10,
+                             n_beams=1024)
+    for t in range(3):
+        warm, _ = sess10.step(warm, traj10.odom[t], traj10.ranges[t],
+                              traj10.beam_angles)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for t in range(3, 6):
+            warm, _ = sess10.step(warm, traj10.odom[t], traj10.ranges[t],
+                                  traj10.beam_angles)
+    torch.cuda.set_sync_debug_mode(0)
+    syncs10 = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+               for w in caught if "synchroniz" in str(w.message)]
+    del warm, sess10
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check(len(syncs10) == 3 and all("models/maintenance.py" in w
+                                    for w in syncs10),
+          f"campaign: {len(syncs10)} host syncs in 3 ticks at {syncs10}, "
+          f"expected exactly one a tick, maintenance's read")
+
+    # each feature's share of every tick of the run: a host span
+    # (perf_counter) and a CUDA-event interval around the session's ICP
+    # control, the guard's snapshot and verdict, and maintenance
+    spans10 = {"ICP": [], "the guard": [], "maintenance": []}
+
+    def spanned(key, fn):
+        def inner(*a, **k):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            h0 = time.perf_counter()
+            out = fn(*a, **k)
+            h1 = time.perf_counter()
+            e1.record()
+            spans10[key].append(((h1 - h0) * 1e3, e0, e1))
+            return out
+        return inner
+
+    def instrument(s_):
+        s_._icp_control = spanned("ICP", s_._icp_control)
+        s_._snapshot = spanned("the guard", s_._snapshot)
+    real_guarded, real_maintain = session_mod.guarded, session_mod.maintain
+    session_mod.guarded = spanned("the guard", real_guarded)
+    session_mod.maintain = spanned("maintenance", real_maintain)
+    for fn in counted.values():
+        fn.launches = 0
+    w0 = time.perf_counter()
+    try:
+        sess10, carry10, outs10, ticks10 = campaign_run(ep10, T10,
+                                                        hook=instrument)
+    finally:
+        session_mod.guarded, session_mod.maintain = (real_guarded,
+                                                     real_maintain)
+    wall10 = (time.perf_counter() - w0) * 1e3 / T10
+    del sess10._icp_control, sess10._snapshot      # the class's own again
+    # per tick: the guard's two calls summed; then the median over ticks
+    span_host10, span_dev10 = {}, {}
+    for key, sp in spans10.items():
+        per = len(sp) // T10
+        check(len(sp) == per * T10 and per in (1, 2),
+              f"campaign: {len(sp)} {key} spans in {T10} ticks")
+        span_host10[key] = statistics.median(
+            sum(x[0] for x in sp[t * per:(t + 1) * per]) for t in range(T10))
+        span_dev10[key] = statistics.median(
+            sum(x[1].elapsed_time(x[2]) for x in sp[t * per:(t + 1) * per])
+            for t in range(T10))
+    launches10 = {k: fn.launches for k, fn in counted.items()}
+    filt10 = carry10.filt
+    check(filt10.P.shape == (20480, 20480)
+          and filt10.P.dtype == torch.bfloat16,
+          f"campaign P is {tuple(filt10.P.shape)} {filt10.P.dtype}")
+    check(launches10 == dict(syrk_downdate=T10, gate_costs=0, score_lines=0,
+                             wall_search=T10, cov_update=0, pair_gather=0,
+                             syrk_gram=0),
+          f"campaign launches {launches10}, expected {T10} syrk_downdate, "
+          f"{T10} wall_search and no other")
+    check(bool(torch.isfinite(filt10.x).all())
+          and bool(torch.isfinite(filt10.P).all()), "campaign: state not "
+          "finite")
+    n10 = int(filt10.n_active.item())
+    check(n10 > 0, "campaign: no landmark mapped")
+    n_icp = int(outs10.icp_ok.sum())
+    check(n_icp > T10 // 2, f"campaign: ICP taken on {n_icp} of {T10} ticks")
+    est10 = outs10.pose.double().cpu().numpy()
+    tru10 = traj10.truth[:T10].double().cpu().numpy()
+    Rg, tg = W.align_se2(est10[:, :2], tru10[:, :2])
+    al10 = est10[:, :2] @ Rg.T + tg
+    ate10 = float(np.sqrt(np.mean(np.sum((al10 - tru10[:, :2]) ** 2, -1))))
+    raw10 = float(np.sqrt(np.mean(np.sum((est10[:, :2] - tru10[:, :2]) ** 2,
+                                         -1))))
+    odo10 = traj10.odom[:T10, :2].double().cpu().numpy()
+    ate_odo10 = float(np.sqrt(np.mean(np.sum((odo10 - tru10[:, :2]) ** 2,
+                                             -1))))
+    check(ate10 < 1.5, f"campaign: aligned ATE {ate10} m (raw {raw10})")
+    lm10 = filt10.x[3:3 + 2 * n10].double().cpu().numpy().reshape(n10, 2)
+    gt10 = W.cluster_feet(W.true_feet(world10), 0.5)
+    map10 = W.map_accuracy(lm10, gt10, tol=0.6)
+    map10a = W.map_accuracy(lm10 @ Rg.T + tg, gt10, tol=0.6)
+    nis10 = outs10.nis.double().cpu().numpy()
+    fin10 = np.isfinite(nis10)
+    ev10 = outs10.n_evicted.cpu()
+    rej10 = torch.nonzero(~outs10.guard_ok.cpu()).flatten().tolist()
+    med10 = statistics.median(ticks10)
+    log(f"phase 10 campaign session full width ok: 16 × 16 rooms, "
+        f"{world10.segments.shape[0]} walls, {len(gt10)} effective ground-"
+        f"truth landmarks; capacity 10000, D=20480 bf16, {T10} ticks, "
+        f"n_active {n10}, aligned ATE {ate10:.4f} m (raw {raw10:.4f}, "
+        f"odometry {ate_odo10:.4f}), ICP taken on {n_icp} of {T10} ticks, "
+        f"{int(ev10.sum())} landmarks evicted in {int((ev10 > 0).sum())} "
+        f"ticks, {len(rej10)} ticks rejected by the guard {rej10[:20]}, "
+        f"map {map10}, map aligned {map10a}, NIS mean "
+        f"{float(nis10[fin10].mean()) if fin10.any() else float('nan'):.4f} "
+        f"over {int(fin10.sum())} observations; launches {launches10}; host "
+        f"syncs {len(syncs10)} in 3 ticks at {sorted(set(syncs10))}; tick "
+        f"median {med10:.3f} ms (CUDA events), wall {wall10:.3f} ms/tick; "
+        f"card: {card}")
+    log(f"phase 10 feature spans inside the run (median over its {T10} "
+        f"ticks; host perf_counter, and the CUDA-event interval on the "
+        f"device's timeline, which is the host's time where the device "
+        f"waits on it): "
+        + "; ".join(f"{k} host {span_host10[k]:.3f} ms, events "
+                    f"{span_dev10[k]:.3f} ms ({100 * span_host10[k] / med10:.1f}% "
+                    f"of the tick)" for k in span_host10)
+        + f"; tick median {med10:.3f} ms; maintenance's span includes the "
+        f"wait at its one host read for the device to drain the tick's "
+        f"queued work; card: {card}")
+    prof10, ops10 = profile_ticks(torch, sess10, carry10, traj10, T10,
+                                  T_PROF)
+    log(f"phase 10 profile: {prof10}")
+    # ICP alone at the campaign's shapes: two consecutive scans' points
+    sc_a = scan_from_ranges(traj10.ranges[9], traj10.beam_angles)
+    sc_b = scan_from_ranges(traj10.ranges[10], traj10.beam_angles)
+    pa, pb = to_cartesian(sc_a), to_cartesian(sc_b)
+
+    def icp_once():
+        return icp(pb, sc_b.valid, pa, sc_a.valid, iters=sess10.icp_iters,
+                   max_pair_dist=sess10.icp_max_pair_dist)
+    icp_prof = profile_device(torch, icp_once, 1, "call")
+    icp_ms = event_ms(torch, icp_once, iters=10, warmup=2)
+    # the guard's passes on the run's P: the pre-measure copy, then the
+    # verdict (isfinite over P, the diagonal) and the masked select back
+    # into P; their bound is 6·|P| bytes (the copy reads and writes P, the
+    # verdict reads it, the select reads P and the copy and writes P)
+    snap_ms = event_ms(torch, lambda: sess10._snapshot(filt10), iters=10)
+    before10 = sess10._snapshot(filt10)
+    guard_ms = event_ms(torch, lambda: guarded(before10, filt10, 0.5),
+                        iters=10)
+    p_bytes = filt10.P.numel() * filt10.P.element_size()
+    guard_bound = 6 * p_bytes / HBM_BYTES_PER_S * 1e3
+    del before10
+    dup_ms = event_ms(torch, lambda: MT.duplicate_mask(filt10, 0.4),
+                      iters=10)
+    # the blocked mask's torch ops write and read ~16 [K,K] planes: five
+    # f32 (Δx, Δy, their squares, the sum) and eleven bool, ~62 bytes a
+    # pair in all
+    dup_bytes = 10000 * 10000 * 62
+    log(f"phase 10 profile: busy and operations above; ICP one call "
+        f"{icp_ms:.3f} ms (CUDA events), {icp_prof[1]} device operations "
+        f"({sess10.icp_iters} iterations); the guard's passes: copy "
+        f"{snap_ms:.4f} ms + verdict and select {guard_ms:.4f} ms = "
+        f"{snap_ms + guard_ms:.4f} ms against their bound {guard_bound:.4f} "
+        f"ms (6 × {p_bytes / 1e6:.1f} MB at 3.35 TB/s; "
+        f"{100 * guard_bound / (snap_ms + guard_ms):.1f}%); duplicate_mask "
+        f"over 10000 slots {dup_ms:.4f} ms (its [K,K] planes, ~62 bytes a "
+        f"pair read and written by its torch ops: ~{dup_bytes / 1e9:.1f} "
+        f"GB, {dup_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate); ICP profile: {icp_prof[0]}; card: {card}")
+    del sess10, carry10, filt10, outs10
+    torch.cuda.empty_cache()
+    # what each feature costs a tick: the first T10W ticks through fresh
+    # sessions with every feature on, the guard off, maintenance off and
+    # odometry control, in turns (A B C D D C B A, twice), since the
+    # host-bound tick moves between runs; per run the median of ticks 8
+    # on, per variant the median of its runs.  A cost is resolved only
+    # where every run without the feature is faster than every run with
+    # all of them on
+    variants10 = (
+        ("all on", ep10, {}),
+        ("guard off", dataclasses.replace(ep10, guard_max_jump=None), {}),
+        ("maintenance off", ep10, dict(maintain_merge_radius=0.0)),
+        ("odometry control", ep10, dict(control_source="odometry")))
+    cost10 = {label: [] for label, _, _ in variants10}
+    for label, ep_, kw_ in 2 * (variants10 + variants10[::-1]):
+        s_, c_, o_, tk_ = campaign_run(ep_, T10W, **kw_)
+        cost10[label].append(statistics.median(tk_[8:]))
+        del s_, c_, o_
+        torch.cuda.empty_cache()
+    med_cost = {k: statistics.median(v) for k, v in cost10.items()}
+    base10 = med_cost["all on"]
+    feats10 = {"the guard": "guard off", "maintenance": "maintenance off",
+               "ICP (fused against odometry control)": "odometry control"}
+    log(f"phase 10 feature cost: median tick of ticks 8-{T10W - 1}, four "
+        f"runs each in turns (A B C D D C B A, twice): "
+        + "; ".join(f"{k} {[round(x, 3) for x in v]} ms (median "
+                    f"{med_cost[k]:.3f})" for k, v in cost10.items())
+        + "; so " + ", ".join(
+            f"{name} {base10 - med_cost[off]:.3f} ms a tick"
+            + ("" if max(cost10[off]) < min(cost10["all on"])
+               else " (not resolved: the runs overlap)")
+            for name, off in feats10.items())
+        + f"; card: {card}")
+
+    # -- 10b. eviction at full width -----------------------------------------
+    # checks.evict_case: bench.py's full state at K = 10000 (all slots
+    # active) with per-slot variances spread, a quarter of the slots
+    # dropped by prune_by_uncertainty (a cut at the 0.77 quantile of the
+    # traces) and duplicate_mask (radius 0.15 m)
+    def drop_for(st_, factored):
+        tr_ = MT._slot_traces(st_, factored).float()
+        cut_ = float(torch.quantile(tr_, 0.77))
+        return (MT.duplicate_mask(st_, 0.15, factored)
+                | MT.prune_by_uncertainty(st_, cut_, factored))
+    evict10b = {}
+    for label, ep_ in (("f32", bench_params(10000, cov_dtype=None,
+                                            correction="gemm")),
+                       ("bf16", bench_params(10000))):
+        st_ = evict_case(ep_, seed=0, device=dev)
+        D_ = st_.P.shape[0]
+        drop_ = drop_for(st_, False)
+        nd_ = int(drop_.sum())
+        k_ = 3 + 2 * (10000 - nd_)
+        rp_ = MT._row_permutation(MT._slot_permutation(drop_, st_.n_active),
+                                  D_)[:k_]
+        want_ = st_.P[rp_][:, rp_]
+        P0_ = st_.P
+        ms_ = []
+        for r in range(3):
+            Pc_ = P0_.clone()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out_ = MT.evict_landmarks(st_._replace(P=Pc_), drop_, ep_)
+            e1.record()
+            torch.cuda.synchronize()
+            ms_.append(e0.elapsed_time(e1))
+            if r == 0:
+                check(torch.equal(out_.P[:k_, :k_], want_),
+                      f"10b {label}: the kept block is not the gather")
+                check(not bool(out_.P[k_:].any())
+                      and not bool(out_.P[:k_, k_:].any()),
+                      f"10b {label}: P not zero past 3 + 2·n_kept")
+                check(int(out_.n_active) == 10000 - nd_,
+                      f"10b {label}: n_active {int(out_.n_active)}")
+            del out_, Pc_
+        isz = P0_.element_size()
+        bound_ = (k_ * k_ + D_ * D_) * isz / HBM_BYTES_PER_S * 1e3
+        evict10b[label] = statistics.median(ms_)
+        log(f"phase 10b dense eviction {label} ok: P [{D_}²], {nd_} of "
+            f"10000 slots dropped ({100 * nd_ / 10000:.1f}%), the kept "
+            f"{k_}² block bit-equal to the gather of the kept rows and "
+            f"columns, zeros past; {evict10b[label]:.4f} ms (median of 3, "
+            f"CUDA events; {[round(v, 4) for v in ms_]}) against its HBM "
+            f"bound {bound_:.4f} ms (the kept block read, P written: "
+            f"{100 * bound_ / evict10b[label]:.1f}%); card: {card}")
+        del st_, want_, P0_, drop_, rp_
+        torch.cuda.empty_cache()
+    # the factored eviction: S [20067²] f32 (the Cholesky factor of the
+    # same state, 64 zero noise-buffer columns), the kept rows of S, then
+    # the recompression (one K6 launch)
+    ep_f = bench_params(10000, cov_dtype=None, correction="gemm")
+    st_ = evict_case(ep_f, seed=0, device=dev)
+    D_ = ep_f.dim + 64
+    S_ = torch.zeros((D_, D_), dtype=torch.float32, device=dev)
+    S_[:ep_f.dim, :ep_f.dim] = chol_for_state(st_.P, st_.n_active)
+    x_ = torch.cat([st_.x, torch.zeros(64, dtype=st_.x.dtype, device=dev)])
+    st_ = FilterState(x=x_, P=S_, sig=st_.sig, active=st_.active,
+                      n_active=st_.n_active)
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(S_).all()), "10b: the factor is not finite")
+    drop_ = drop_for(st_, True)
+    nd_ = int(drop_.sum())
+    k_ = 3 + 2 * (10000 - nd_)
+    rp_ = MT._row_permutation(MT._slot_permutation(drop_, st_.n_active),
+                              D_)[:k_]
+    S_kept = S_[rp_]                    # the old factor's kept rows [k, D]
+    rows_ = torch.linspace(0, k_ - 1, 64, device=dev).round().long()
+    plain_ = gram_plain_errors(S_kept, rows=rows_)
+    for fn in counted.values():
+        fn.launches = 0
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    out_ = MT.evict_landmarks_factored(st_, drop_, ep_f)
+    e1.record()
+    torch.cuda.synchronize()
+    fact_ms = e0.elapsed_time(e1)
+    launches10b = {k: fn.launches for k, fn in counted.items()}
+    check(launches10b == dict(syrk_downdate=0, gate_costs=0, score_lines=0,
+                              wall_search=0, cov_update=0, pair_gather=0,
+                              syrk_gram=1),
+          f"10b factored eviction launched {launches10b}, expected one K6")
+    S2 = out_.P
+    check(bool(torch.isfinite(S2).all()), "10b: new factor not finite")
+    check(torch.equal(S2, S2.tril()), "10b: new factor not triangular")
+    check(not bool(S2[k_:].any()), "10b: rows past 3 + 2·n_kept not 0")
+    S2k = S2[:k_].double()
+    G_rows = S2k[rows_] @ S2k.T
+    del S2k
+    res_ = gram_compare(G_rows, S_kept, plain_, rows=rows_)
+    check(res_["ok"], f"10b: the new factor's Gram on 64 kept rows against "
+          f"the f64 Gram of the old kept rows: e {res_['err']} over the "
+          f"limit {res_['limit']} (plain f32 Grams' e {plain_})")
+    log(f"phase 10b factored eviction ok: S ({D_}, {D_}) f32, {nd_} of "
+        f"10000 slots dropped, {launches10b['syrk_gram']} K6 launch (the "
+        f"recompression), the new factor finite, lower triangular, zero "
+        f"past row {k_}; its Gram on 64 kept rows against the f64 Gram of "
+        f"the old factor's kept rows: e {res_['err']:.3e} (limit "
+        f"{res_['limit']:.3e}, checks.gram_compare; plain f32 Grams' e "
+        + ", ".join(f"{k} {v:.3e}" for k, v in plain_.items())
+        + f"); {fact_ms:.3f} ms (CUDA events, one call); card: {card}")
+    del st_, S_, S_kept, out_, S2, G_rows, x_
+    torch.cuda.empty_cache()
+    kernels["syrk_downdate"]["campaign_launches"] = launches10["syrk_downdate"]
+    kernels["wall_search"]["campaign_launches"] = launches10["wall_search"]
+    kernels["syrk_gram"]["eviction_launches"] = launches10b["syrk_gram"]
 
     print(json.dumps({"kernels": [dict(name=n, **k)
                                   for n, k in kernels.items()]}))

@@ -23,7 +23,12 @@ blocked Cholesky every ``sr_noise_buffer`` ticks.
 
 ``SlamSession()`` as constructed runs the reference's sequential filter
 (``update_mode="sequential"``, the one-seed wall search), and
-``update_mode="srekf"`` the QR square-root filter.  The exports are the
+``update_mode="srekf"`` the QR square-root filter.  In every update mode
+the session also takes ``control_source="icp"`` or ``"fused"``
+(scan-to-scan ICP, ops/icp.py), the fault guard
+(``EKFParams(guard_max_jump=...)``, utils/faults.py) and map maintenance
+(``maintain_merge_radius``, ``maintain_max_trace``,
+models/maintenance.py).  The exports are the
 JAX package's but ``MeshConfig``, which comes with the distributed
 layers (ROADMAP §1 item 6).
 """

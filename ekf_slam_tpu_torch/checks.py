@@ -4,7 +4,8 @@ case and its comparison with the plain version, the K2 gating case and
 the tolerance of its in-kernel bearing, the K5 pair starts, the K6
 Gram's precision check against the f64 Gram, the square-root
 recompression's QR branch, one session run on several
-devices with the same inputs, and the JAX package's batched-update
+devices with the same inputs, the large-world campaign's configuration
+and route, and the JAX package's batched-update
 benchmark (bench.py) as the port runs it: its parameters, full state,
 measurements and one gate + update batch.  Each caller keeps its own
 shapes and tolerances."""
@@ -195,17 +196,23 @@ def gram_banded_case(g: torch.Generator, D: int, width: int = 256
 
 
 def _gram_errors(S: torch.Tensor, Gs: Iterable[torch.Tensor],
-                block: int = 2048) -> list:
+                 block: int = 2048, rows: Optional[torch.Tensor] = None
+                 ) -> list:
     """``gram_error`` of each G in ``Gs`` (on any device) against one f64
-    Gram of S, formed on S's device ``block`` rows at a time."""
+    Gram of S, formed on S's device ``block`` rows at a time; with
+    ``rows`` (indices into S) only those rows of the Gram, so each G is
+    [len(rows), S rows]."""
     Gs = list(Gs)
     S64 = S.to(torch.float64)
     d = (S64 * S64).sum(dim=1)                      # G64's diagonal
+    idx = (torch.arange(S64.shape[0], device=S.device) if rows is None
+           else rows.to(S.device))
     errs = [0.0] * len(Gs)
-    for i0 in range(0, S64.shape[0], block):
-        i1 = min(i0 + block, S64.shape[0])
-        ref = S64[i0:i1] @ S64.T
-        scale = torch.sqrt(d[i0:i1, None] * d[None, :])
+    for i0 in range(0, idx.shape[0], block):
+        i1 = min(i0 + block, idx.shape[0])
+        r = idx[i0:i1]
+        ref = S64[r] @ S64.T
+        scale = torch.sqrt(d[r, None] * d[None, :])
         zero = scale == 0
         scale[zero] = 1.0
         for n, G in enumerate(Gs):
@@ -220,38 +227,48 @@ def _gram_errors(S: torch.Tensor, Gs: Iterable[torch.Tensor],
     return errs
 
 
-def gram_error(G: torch.Tensor, S: torch.Tensor) -> float:
+def gram_error(G: torch.Tensor, S: torch.Tensor,
+               rows: Optional[torch.Tensor] = None) -> float:
     """e(G) = max over i, j of |G_ij − G64_ij| / √(G64_ii·G64_jj), G64
     the f64 Gram of S: on the diagonal the relative error the Cholesky
     sees.  Where G64_ii·G64_jj = 0 (a zero row of S) G_ij must be exactly
-    0, or e is infinite; a NaN in G counts as infinite."""
-    return _gram_errors(S, [G])[0]
+    0, or e is infinite; a NaN in G counts as infinite.  With ``rows``, G
+    holds only those rows of the Gram."""
+    return _gram_errors(S, [G], rows=rows)[0]
 
 
-def gram_plain_errors(S: torch.Tensor, seed: int = 0) -> Dict[str, float]:
+def gram_plain_errors(S: torch.Tensor, seed: int = 0,
+                      rows: Optional[torch.Tensor] = None
+                      ) -> Dict[str, float]:
     """e of the plain f32 Grams of S: the CPU's ``torch.matmul`` ('cpu'),
     the same with S's contraction columns permuted by ``seed`` (a
     different order of every sum, 'cpu_permuted') and, for S on CUDA, the
-    card's ``torch.matmul`` in full f32 ('card', ``allow_tf32`` False)."""
+    card's ``torch.matmul`` in full f32 ('card', ``allow_tf32`` False).
+    With ``rows``, only those rows of each Gram are formed."""
     Sh = S.detach().to("cpu", torch.float32)
+    hr = None if rows is None else rows.to("cpu")
     perm = torch.randperm(Sh.shape[1],
                           generator=torch.Generator().manual_seed(seed))
     Sp = Sh[:, perm]
-    Gs = {"cpu": Sh @ Sh.T, "cpu_permuted": Sp @ Sp.T}
+
+    def part(A):
+        return A if hr is None else A[hr]
+    Gs = {"cpu": part(Sh) @ Sh.T, "cpu_permuted": part(Sp) @ Sp.T}
     del Sp
     if S.device.type == "cuda":
         with full_f32_matmul():
-            Gs["card"] = torch.matmul(S, S.T)
-    return dict(zip(Gs, _gram_errors(S, Gs.values())))
+            Gs["card"] = torch.matmul(S if rows is None else S[rows], S.T)
+    return dict(zip(Gs, _gram_errors(S, Gs.values(), rows=rows)))
 
 
 def gram_compare(G: torch.Tensor, S: torch.Tensor,
-                 plain_errors: Dict[str, float]) -> Dict[str, object]:
+                 plain_errors: Dict[str, float],
+                 rows: Optional[torch.Tensor] = None) -> Dict[str, object]:
     """A Gram of S (the kernel's, or a stand-in) against the f64 Gram:
     its e (``gram_error``), the limit 4·m + 8·2⁻²³, m the largest e of the
-    plain f32 Grams of the same S (``gram_plain_errors``), and whether e
-    is within it."""
-    err = gram_error(G, S)
+    plain f32 Grams of the same S (``gram_plain_errors``, over the same
+    ``rows``), and whether e is within it."""
+    err = gram_error(G, S, rows=rows)
     lim = 4 * max(plain_errors.values()) + 8 * 2.0 ** -23
     return dict(err=err, limit=lim, ok=err <= lim)
 
@@ -745,15 +762,15 @@ def recompress_qr_case(devices: Iterable[str], capacity: int = 32,
     return out
 
 
-def session_on_devices(ep: EKFParams, rp: RansacParams, T: int,
-                       n_beams: int, devices: Iterable[str], seed: int = 0
-                       ) -> Dict[str, object]:
+def session_inputs(rp: RansacParams, T: int, n_beams: int, seed: int = 0,
+                   edit: Optional[Callable] = None):
     """One ``rectangle_room(4, 3)`` trajectory of T ticks on
     ``circle_controls(T, 0.05, 3.0)`` and one set of extractor draws, both
-    made on the CPU from ``seed``, run by a fresh ``SlamSession`` on each
-    device.  The draws have a row per hypothesis of the batched wall
-    search, or per round of the one-seed search (``n_hypotheses=0``).
-    Returns {device: the session's stacked outputs}."""
+    made on the CPU from ``seed``.  The draws have a row per hypothesis of
+    the batched wall search, or per round of the one-seed search
+    (``n_hypotheses=0``).  ``edit(traj)`` returns the (odometry, ranges)
+    to use instead of the simulator's (the fault injectors).  Returns
+    (odometry [T,3], ranges [T,B], beam angles [B], [(u, s)] a tick)."""
     g = torch.Generator().manual_seed(seed)
     traj = W.simulate(W.rectangle_room(4.0, 3.0, device="cpu"),
                       W.circle_controls(T, 0.05, 3.0, device="cpu"),
@@ -761,13 +778,99 @@ def session_on_devices(ep: EKFParams, rp: RansacParams, T: int,
     rows = rp.n_hypotheses or rp.wall_search_timeout
     draws = [(torch.rand((rows, n_beams), generator=g),
               torch.rand((rows, n_beams), generator=g)) for _ in range(T)]
+    odom, ranges = (traj.odom, traj.ranges) if edit is None else edit(traj)
+    return odom, ranges, traj.beam_angles, draws
+
+
+def session_on_devices(ep: EKFParams, rp: RansacParams, T: int,
+                       n_beams: int, devices: Iterable[str], seed: int = 0,
+                       session_kw: Optional[dict] = None,
+                       edit: Optional[Callable] = None) -> Dict[str, object]:
+    """``session_inputs(rp, T, n_beams, seed, edit)`` run by a fresh
+    ``SlamSession`` on each device; ``session_kw`` are further
+    SlamSession arguments (control source, maintenance).  Returns
+    {device: the session's stacked outputs}."""
+    odom, ranges, beams, draws = session_inputs(rp, T, n_beams, seed, edit)
     outs = {}
     for where in devices:
-        sess = SlamSession(ekf_params=ep, ransac_params=rp, device=where)
-        _, outs[where] = sess.run(traj.odom, traj.ranges, traj.beam_angles,
+        sess = SlamSession(ekf_params=ep, ransac_params=rp, device=where,
+                           **(session_kw or {}))
+        _, outs[where] = sess.run(odom, ranges, beams,
                                   draws=[(u.to(where), s.to(where))
                                          for u, s in draws])
     return outs
+
+
+def decisions_differ(a, b) -> Dict[str, list]:
+    """The ticks at which two runs' stacked outputs took different
+    decisions: the fused control's choice (``icp_ok``), the guard's
+    verdict (``guard_ok``) and the eviction count (``n_evicted``), where
+    the runs record them.  {name: [tick, ...]}; empty lists where equal."""
+    out = {}
+    for name in ("icp_ok", "guard_ok", "n_evicted"):
+        x, y = getattr(a, name), getattr(b, name)
+        if x is None and y is None:
+            continue
+        if x is None or y is None:
+            out[name] = ["recorded by one run only"]
+            continue
+        out[name] = torch.nonzero(x.cpu() != y.cpu()).flatten().tolist()
+    return out
+
+
+def campaign_params(capacity: int, dtype=torch.float32,
+                    control: str = "fused", odo_theta_std: float = 0.5
+                    ) -> Tuple[EKFParams, RansacParams]:
+    """The large-world campaign's configuration: the port's own copy of
+    examples/large_world_slam.py:37-80 (the JAX package's round-5
+    campaign), which the port may not import.  Filter: ML association,
+    the extractor's fit-propagated R with a floor, an honest process
+    noise with a floor matched to the control source, the fault guard at
+    0.5 m, the batched update.  Extractor: the batched-hypothesis search
+    (NH = 192) with two refits, the gap and kink splitters and an RMS
+    gate, a table of max(256, 2·capacity).  The filter then takes
+    ``tuned_params(..., batch=max_obs)``, as
+    experiments/chip_r5_world.py:73 does (at 10k landmarks: rows P·Hᵀ,
+    bf16 P padded to 20480, the SYRK correction)."""
+    ekf = EKFParams(
+        capacity=capacity, max_obs=24, ref_compat=False,
+        association="ml", s_cost=1e6, s_thresh=9.2,
+        rc=(0.05, 0.3), noise_model="fit", c_process=0.01,
+        q_floor=((0.003 ** 2, 0.003 ** 2, 0.08 ** 2)
+                 if control in ("icp", "fused")
+                 else (0.004 ** 2, 0.004 ** 2, odo_theta_std ** 2)),
+        guard_max_jump=0.5, update_mode="batched", dtype=dtype)
+    ransac = RansacParams(
+        line_consensus=36, bearing_window_deg=20.0,
+        wall_search_timeout=9, sample_points=12,
+        inlier_dist=0.15, assoc_dist=0.7,
+        promote_count=4, freshness=90,
+        table_capacity=max(256, 2 * capacity), n_hypotheses=192,
+        refine_passes=2, refine_frac=0.4,
+        split_gap=1.2, split_kink_deg=3.0, max_fit_rms=0.04,
+        match_mode="nearest", writeback_mode="sig",
+        ref_compat=False, writeback_last_only=False, dtype=dtype)
+    return tuned_params(ekf, batch=ekf.max_obs), ransac
+
+
+#: the campaign session's own settings (examples/large_world_slam.py:
+#: 100-104): the ICP pairing radius and the fused gates, and the merge
+#: radius of the map maintenance
+CAMPAIGN_SESSION = dict(icp_max_pair_dist=0.4, icp_min_inliers=200,
+                        icp_max_rmse=0.08, maintain_merge_radius=0.4)
+
+
+def campaign_route(rooms: int, ticks: int):
+    """The campaign's world and route: ``floorplan_world(rooms, rooms,
+    seed=0)``, its serpentine waypoints and the pure-pursuit controls at
+    0.25 m a tick (experiments/chip_r5_world.py:51-63), cut to the first
+    ``ticks``.  Returns (world segments as a float64 numpy array, the
+    controls [T,2] and the start pose [3], numpy)."""
+    world = W.floorplan_world(rooms, rooms, seed=0, dtype=torch.float64,
+                              device="cpu")
+    ctrl, start = W.waypoint_controls(W.serpentine_waypoints(rooms, rooms),
+                                      step=0.25)
+    return world, ctrl[:ticks], start
 
 
 def bench_params(K: int, **overrides) -> EKFParams:
@@ -821,6 +924,22 @@ def full_state(params: EKFParams, K: int, seed: int = 0, device=None
         sig=torch.arange(1, K + 1, dtype=params.dtype, device=device),
         active=torch.ones((K,), dtype=torch.bool, device=device),
         n_active=torch.tensor(K, dtype=torch.int32, device=device))
+
+
+def evict_case(params: EKFParams, seed: int = 0, device=None
+               ) -> FilterState:
+    """``full_state(params, capacity)`` with each slot's two variances
+    raised by one draw from U[0, 1) (numpy, from ``seed``), so that the
+    per-slot traces differ by far more than a bf16 ulp and a cut at a
+    quantile of them drops that share of the slots."""
+    K = params.capacity
+    st = full_state(params, K, seed=seed, device=device)
+    bump = np.repeat(np.random.default_rng((seed, K)).uniform(
+        0.0, 1.0, K), 2)
+    rows = torch.arange(3, 3 + 2 * K, device=st.P.device)
+    P = st.P
+    P[rows, rows] += torch.tensor(bump, dtype=P.dtype, device=P.device)
+    return st
 
 
 def full_measurements(x, K: int, n: int, seed: int = 1,

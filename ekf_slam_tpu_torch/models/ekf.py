@@ -219,10 +219,12 @@ def innovation(x: torch.Tensor, slot
 
 
 def _rc_floor(params: EKFParams, device) -> torch.Tensor:
-    """diag(rc0², rc1²), filled in place (no host-to-device copy)."""
+    """diag(rc0², rc1²), each entry filled in place by a kernel that takes
+    the value as its argument: no host-to-device copy (an assignment of a
+    Python number to a CUDA element copies it and syncs)."""
     R = torch.zeros((2, 2), dtype=params.dtype, device=device)
-    R[0, 0] = params.rc[0] ** 2
-    R[1, 1] = params.rc[1] ** 2
+    R[0, 0].fill_(params.rc[0] ** 2)
+    R[1, 1].fill_(params.rc[1] ** 2)
     return R
 
 

@@ -545,3 +545,142 @@ def test_masked_update_on_card_leaves_the_state_bit_unchanged(dev):
     assert torch.equal(got.x.view(torch.int32), x0.view(torch.int32))
     assert torch.equal(got.P.view(torch.int32), P0.view(torch.int32))
     assert bool(torch.isfinite(far.P).all())
+
+
+def _robust_params(**ekw):
+    from ekf_slam_tpu_torch import EKFParams, RansacParams
+    ep = EKFParams(capacity=64, max_obs=8, ref_compat=False,
+                   update_mode="batched", pht_mode="rows", correction="syrk",
+                   **ekw)
+    rp = RansacParams(line_consensus=30, bearing_window_deg=15.0,
+                      wall_search_timeout=4, table_capacity=64,
+                      promote_count=5, ref_compat=False, n_hypotheses=32)
+    return ep, rp
+
+
+def test_guard_on_card_matches_cpu(dev):
+    """The guard (3 cm) on a session fed odometry corrupted once on the
+    CPU (ticks 10 and 20 moved 0.71 m by corrupt_odometry with handed
+    draws), card against CPU: the same ticks rejected (some), the same
+    landmark count every tick, poses within 1e-3."""
+    from ekf_slam_tpu_torch.checks import decisions_differ
+    from ekf_slam_tpu_torch.utils.faults import corrupt_odometry
+    T = 24
+
+    def corrupted(traj):
+        hit = torch.zeros(T, dtype=torch.bool)
+        hit[[10, 20]] = True
+        noise = torch.zeros(T, 3)
+        noise[10] = torch.tensor([0.5, -0.5, 0.0])
+        noise[20] = torch.tensor([-0.5, 0.5, 0.0])
+        return corrupt_odometry(traj.odom, None, 0.0, magnitude=1.0,
+                                hit=hit, noise=noise), traj.ranges
+    ep, rp = _robust_params(guard_max_jump=0.03)
+    outs = session_on_devices(ep, rp, T, 512, ("cuda", "cpu"),
+                              edit=corrupted)
+    assert not any(decisions_differ(outs["cuda"], outs["cpu"]).values())
+    assert not bool(outs["cpu"].guard_ok.all())
+    assert torch.equal(outs["cuda"].n_active.cpu(), outs["cpu"].n_active)
+    assert (outs["cuda"].pose.cpu() - outs["cpu"].pose).abs().max() <= 1e-3
+
+
+def test_guarded_on_card_restores_nan_bit_for_bit(dev):
+    """``guarded`` on CUDA tensors: a NaN measurement is rejected and P
+    (bf16 and f32) is restored in place, bit for bit, from the snapshot;
+    an accepted one leaves P as the measurement made it."""
+    from ekf_slam_tpu_torch import EKFParams
+    from ekf_slam_tpu_torch.state import init_state
+    from ekf_slam_tpu_torch.utils.faults import guarded
+    for cov, view in ((None, torch.int32), (torch.bfloat16, torch.int16)):
+        st = init_state(EKFParams(capacity=300, cov_dtype=cov), device=dev)
+        g = torch.Generator(device=dev).manual_seed(1)
+        A = torch.randn(st.P.shape, generator=g, device=dev)
+        snap = (A @ A.T * 1e-3).to(st.P.dtype)
+        before = st._replace(P=snap)
+        bad = st._replace(P=torch.full_like(st.P, float("nan")))
+        ptr = bad.P.data_ptr()
+        out, v = guarded(before, bad, 1.0)
+        torch.cuda.synchronize()
+        assert not bool(v.ok) and out.P.data_ptr() == ptr
+        assert torch.equal(out.P.view(view), snap.view(view))
+        good_P = snap * 0.5
+        out, v = guarded(before, st._replace(P=good_P.clone()), 1.0)
+        assert bool(v.ok) and torch.equal(out.P.view(view),
+                                          good_P.view(view))
+
+
+@pytest.mark.parametrize("cov", [None, torch.bfloat16])
+def test_eviction_on_card_matches_cpu(dev, cov):
+    """Dense eviction on the card (f32 and bf16 P) equals the CPU's bit
+    for bit and the gather of the kept rows and columns; the factored
+    eviction launches K6 once and its factor's Gram matches the CPU's
+    within 1e-5 of its largest entry."""
+    from ekf_slam_tpu_torch.checks import bench_params, evict_case
+    from ekf_slam_tpu_torch.models import maintenance as MT
+    from ekf_slam_tpu_torch.models.srekf import factor_from_state
+    ep = bench_params(400, cov_dtype=cov,
+                      correction="gemm" if cov is None else "syrk")
+    outs = {}
+    for where in ("cuda", "cpu"):
+        st = evict_case(ep, seed=3, device=where)
+        tr = MT._slot_traces(st, False).float()
+        drop = (MT.duplicate_mask(st, 1.0)
+                | MT.prune_by_uncertainty(st, float(tr.quantile(0.75))))
+        outs[where] = (MT.evict_landmarks(st, drop, ep), drop)
+    (gc, dc), (gh, dh) = outs["cuda"], outs["cpu"]
+    assert torch.equal(dc.cpu(), dh) and 0 < int(dh.sum()) < 400
+    for f in gc._fields:
+        assert torch.equal(getattr(gc, f).cpu(), getattr(gh, f)), f
+    if cov is None:
+        st = evict_case(ep, seed=3, device=dev)
+        sr = factor_from_state(st)
+        K.syrk_gram.launches = 0
+        out = MT.evict_landmarks_factored(sr, dc, ep)
+        torch.cuda.synchronize()
+        assert K.syrk_gram.launches == 1
+        S = out.P.cpu().double()
+        want = gh.P.double()
+        assert (S @ S.T - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_icp_on_card_ignores_tf32(dev):
+    """ICP on the card: the same pose, RMSE and inlier count with
+    ``allow_tf32`` on and off (no matrix product touches the points), and
+    within 1e-4 of the CPU's."""
+    from ekf_slam_tpu_torch.ops.icp import icp
+    g = torch.Generator().manual_seed(2)
+    src = torch.rand((1024, 2), generator=g) * 8 - 4
+    th = torch.tensor(0.1)
+    R = torch.stack([torch.stack([th.cos(), -th.sin()]),
+                     torch.stack([th.sin(), th.cos()])])
+    dst = src @ R.T + torch.tensor([0.2, -0.1])
+    ok = torch.rand(1024, generator=g) > 0.1
+    host = icp(src, ok, dst, ok, iters=15, max_pair_dist=0.4)
+    res = []
+    for tf32 in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        res.append(icp(src.to(dev), ok.to(dev), dst.to(dev), ok.to(dev),
+                       iters=15, max_pair_dist=0.4))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b = res
+    assert torch.equal(a.pose, b.pose) and torch.equal(a.rmse, b.rmse)
+    assert int(a.n_inliers) == int(b.n_inliers) == int(host.n_inliers)
+    assert (a.pose.cpu() - host.pose).abs().max() <= 1e-4
+
+
+def test_noise_floor_on_card_does_not_sync(dev):
+    """The measurement-noise floor diag(rc0², rc1²) of noise_model
+    'constant' and 'fit' is made on the card without a host-to-device
+    copy (an assignment of a Python number to a CUDA element syncs), with
+    the values the CPU makes."""
+    from ekf_slam_tpu_torch import EKFParams
+    from ekf_slam_tpu_torch.models import ekf
+    p = EKFParams(rc=(0.05, 0.3), noise_model="fit", ref_compat=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        R = ekf._rc_floor(p, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(R.cpu(), ekf._rc_floor(p, "cpu"))
+    assert R[0, 0].item() == torch.tensor(0.05 ** 2).item()

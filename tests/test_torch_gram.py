@@ -281,3 +281,29 @@ def test_recompress_with_emulated_gram_takes_the_cholesky_branch(
         assert torch.equal(L, L.tril())
         P = (L @ L.T)[:d, :d]
         assert (P - want).abs().max() <= 1e-5 * want.abs().max(), gram
+
+
+@pytest.mark.parametrize("D,R", [(517, 517), (129, 33)])
+def test_gram_compare_on_sampled_rows(D, R):
+    """The row-sample form of the check (``rows=``, as phase 10b of
+    chip_smoke.py holds a factored eviction's Gram by 64 of its rows):
+    over all rows it gives the full check's e and limit; on a sample the
+    3xTF32 emulation passes, one TF32 pass fails, and a moved element in
+    a sampled row fails."""
+    S = gram_dense_case(D, R)
+    G_good, G_bad = emulated_3xtf32(S), tf32_single_pass(S)
+    every = torch.arange(D)
+    plain_all = gram_plain_errors(S)
+    assert gram_plain_errors(S, rows=every) == plain_all
+    full = gram_compare(G_good, S, plain_all)
+    assert gram_compare(G_good, S, plain_all, rows=every) == full
+    rows = torch.linspace(0, D - 1, min(D, 16)).round().long()
+    plain = gram_plain_errors(S, rows=rows)
+    assert max(plain.values()) <= max(plain_all.values())
+    assert gram_compare(G_good[rows], S, plain, rows=rows)["ok"]
+    assert not gram_compare(G_bad[rows], S, plain, rows=rows)["ok"]
+    moved = G_good[rows].clone()
+    i, j = 3, int(rows[5])
+    moved[i, j] += 1e-4 * float(torch.sqrt(G_good[rows[i], rows[i]]
+                                           * G_good[j, j]))
+    assert not gram_compare(moved, S, plain, rows=rows)["ok"]

@@ -12,7 +12,13 @@ sequence.  The JAX session draws its extractor randomness from
 threefry; the port is handed exactly those draws (session.py:320 then
 ransac.py:314-325), so the two runs take the same decisions tick by
 tick.  Also: the simulator's noise-free ray cast, the padded initial
-carry, and the modes this slice does not port."""
+carry, every session option constructing and stepping, and the control
+and robustness modes: ICP and fused control (the fused gate's choice
+tick by tick), the fault guard (its verdict tick by tick, on the
+reference's 0/360 seam glitch) and map maintenance (the evictions tick
+by tick), on the batched and the square-root paths.  The JAX session's
+decisions are recorded by wrapping its icp, guarded and maintain with
+ordered debug callbacks (its StepOutput does not carry them)."""
 import dataclasses
 
 import jax
@@ -221,30 +227,38 @@ def test_init_carry_matches(syrk):
     np.testing.assert_array_equal(n(tcarry.old_odom), n(jcarry.old_odom))
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(control_source="icp"), "control_source"),
+@pytest.mark.parametrize("kw,mode", [
+    (dict(control_source="icp"), "icp"),
     (dict(maintain_max_trace=1.0), "maintenance"),
     (dict(ekf=dict(update_mode="sequential")), "update_mode"),
     (dict(ekf=dict(update_mode="srekf")), "update_mode"),
     (dict(ekf=dict(guard_max_jump=1.0)), "guard"),
 ])
-def test_modes_of_later_slices_raise(kw, match):
-    """ICP/fused control, map maintenance and the fault guard raise,
-    naming the mode.  The two update modes this test listed as later
-    slices, 'sequential' and 'srekf', are ported: they construct and
-    step instead."""
+def test_modes_construct_and_step(kw, mode):
+    """Every mode that once raised NotImplementedError now constructs and
+    steps: ICP control (the carry then holds the previous scan and
+    control, and init_carry needs n_beams), map maintenance, the fault
+    guard, and the 'sequential' and 'srekf' update modes."""
     kw = dict(kw)
     ep = tc.EKFParams(**{"update_mode": "batched", **kw.pop("ekf", {})})
     rp = tc.RansacParams(n_hypotheses=8)
-    if match == "update_mode":
-        sess = TSession(ekf_params=ep, ransac_params=rp, device="cpu", **kw)
-        carry, out = sess.step(sess.init_carry(), torch.zeros(3),
-                               torch.full((B,), 2.0),
-                               torch.arange(B) * (360.0 / B))
-        assert out.pose.shape == (3,) and carry.sr_tick is None
-        return
-    with pytest.raises(NotImplementedError, match=match):
-        TSession(ekf_params=ep, ransac_params=rp, device="cpu", **kw)
+    sess = TSession(ekf_params=ep, ransac_params=rp, device="cpu", **kw)
+    if mode == "icp":
+        with pytest.raises(ValueError, match="n_beams"):
+            sess.init_carry()
+        carry0 = sess.init_carry(n_beams=B)
+        assert carry0.prev_pts.shape == (B, 2) and not carry0.prev_valid.any()
+    else:
+        carry0 = sess.init_carry()
+        assert carry0.prev_pts is None and carry0.prev_u is None
+    carry, out = sess.step(carry0, torch.zeros(3), torch.full((B,), 2.0),
+                           torch.arange(B) * (360.0 / B))
+    assert out.pose.shape == (3,) and carry.sr_tick is None
+    assert (out.guard_ok is not None) == (mode == "guard")
+    assert (out.n_evicted is not None) == (mode == "maintenance")
+    if mode == "icp":
+        assert carry.prev_valid.all() and torch.equal(out.u, carry.prev_u)
+        assert torch.equal(out.u, torch.zeros(2))      # empty previous scan
 
 
 T_SR = 60
@@ -511,3 +525,334 @@ def test_init_carry_srekf_matches():
         np.testing.assert_allclose(n(getattr(tcarry.filt, f)),
                                    n(getattr(jcarry.filt, f)), rtol=1e-15,
                                    atol=0, err_msg=f)
+
+
+# -- control and robustness: ICP/fused control, the guard, maintenance -----
+
+def _record_jax(monkeypatch):
+    """Wrap the JAX session's icp, guarded and maintain (imported inside
+    its step at trace time) so that each tick's ICP quality figures, the
+    guard's verdict and the eviction count are recorded, in tick order,
+    by ordered debug callbacks."""
+    import ekf_slam_tpu.models.maintenance as jm
+    import ekf_slam_tpu.ops.icp as jicp
+    import ekf_slam_tpu.utils.faults as jf
+    rec = {"icp": [], "guard": [], "evicted": []}
+    real = (jicp.icp, jf.guarded, jm.maintain)
+
+    def icp(*a, **k):
+        r = real[0](*a, **k)
+        jax.debug.callback(
+            lambda ni, rm: rec["icp"].append((int(ni), float(rm))),
+            r.n_inliers, r.rmse, ordered=True)
+        return r
+
+    def guarded(*a, **k):
+        out, v = real[1](*a, **k)
+        jax.debug.callback(lambda ok: rec["guard"].append(bool(ok)), v.ok,
+                           ordered=True)
+        return out, v
+
+    def maintain(*a, **k):
+        out, cnt = real[2](*a, **k)
+        jax.debug.callback(lambda c: rec["evicted"].append(int(c)), cnt,
+                           ordered=True)
+        return out, cnt
+    monkeypatch.setattr(jicp, "icp", icp)
+    monkeypatch.setattr(jf, "guarded", guarded)
+    monkeypatch.setattr(jm, "maintain", maintain)
+    return rec
+
+
+def _draws_for(rp, seed, ticks, beams):
+    """The JAX session's extractor draws for ``rp``: (u, s) [NH, B] a
+    tick for the batched search, [rounds, B] for the one-seed search."""
+    key, out = jax.random.PRNGKey(seed), []
+    for _ in range(ticks):
+        key, sub = jax.random.split(key)
+        if rp.n_hypotheses:
+            k_pick, k_sample = jax.random.split(sub)
+            shape = (rp.n_hypotheses, beams)
+            out.append((t(jax.random.uniform(k_pick, shape)),
+                        t(jax.random.uniform(k_sample, shape))))
+        else:
+            out.append(find_walls_draws(sub, rp.wall_search_timeout, beams))
+    return out
+
+
+def _run_recorded(monkeypatch, traj, ranges, ep, rp, init_pose=None,
+                  **skw):
+    """The JAX session (decisions recorded) and the port's, from the same
+    initial carry (anchored at ``init_pose``, if given) with the JAX
+    draws, over ``ranges``."""
+    rec = _record_jax(monkeypatch)
+    ranges = np.asarray(ranges)
+    Tn, nb = ranges.shape
+    icp_on = skw.get("control_source", "odometry") != "odometry"
+    js = JSession(ekf_params=ep, ransac_params=rp, seed=SEED, **skw)
+    c0 = js.init_carry(first_odom=traj.odom[0],
+                       n_beams=nb if icp_on else None, init_pose=init_pose)
+    jcarry, jo = js.run(traj.odom, jnp.asarray(ranges), traj.beam_angles,
+                        carry=c0)
+    jax.effects_barrier()
+    ts = TSession(ekf_params=port(ep), ransac_params=port(rp), seed=SEED,
+                  device="cpu", **skw)
+    tc0 = convert.carry_from_numpy(jax.tree.map(np.asarray, c0),
+                                   device="cpu")
+    tcarry, to = ts.run(np.array(traj.odom), ranges, t(traj.beam_angles),
+                        carry=tc0, draws=_draws_for(rp, SEED, Tn, nb))
+    return (jcarry, jo, rec), (tcarry, to)
+
+
+T_CTL = 30
+
+
+@pytest.fixture(scope="module")
+def traj_ctl():
+    """A 30-tick loop in the room (the control and robustness runs)."""
+    cfg = jc.SimConfig(n_beams=B, max_range=12.0, range_noise_std=0.01,
+                       odom_xy_noise_std=0.0005, odom_theta_noise_std=0.02)
+    return jw.simulate(jw.rectangle_room(4.0, 3.0),
+                       jw.circle_controls(T_CTL, 0.05, 3.0), cfg,
+                       jax.random.PRNGKey(0))
+
+
+def _assert_tracks(jo, to, tol=1e-9):
+    np.testing.assert_array_equal(n(to.n_active), n(jo.n_active))
+    np.testing.assert_array_equal(n(to.n_obs), n(jo.n_obs))
+    assert np.abs(n(to.pose) - n(jo.pose)).max() <= tol
+    assert np.abs(n(to.u) - n(jo.u)).max() <= tol
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_session_parity_icp_f64(traj_ctl, monkeypatch, signed):
+    """control_source='icp' (batched, f64, 15 iterations, pairing radius
+    0.5 m): the odometry is ignored, the first tick's u is 0, and the
+    per-tick u and pose equal JAX's (≤ 1e-9), with every decision equal
+    and the same ICP inlier count a tick; the carried previous scan and
+    control equal JAX's."""
+    ep, rp = _params(jnp.float64)
+    (jc_, jo, rec), (tc_, to) = _run_recorded(
+        monkeypatch, traj_ctl, traj_ctl.ranges, ep, rp,
+        control_source="icp", icp_iters=15, icp_max_pair_dist=0.5,
+        icp_signed=signed)
+    _assert_tracks(jo, to)
+    assert not n(to.u)[0].any()
+    assert n(to.n_active)[-1] >= 3
+    assert len(rec["icp"]) == T_CTL and rec["icp"][0][0] == 0
+    assert min(ni for ni, _ in rec["icp"][1:]) > 30
+    assert to.icp_ok is None
+    np.testing.assert_array_equal(n(tc_.prev_valid), n(jc_.prev_valid))
+    assert np.abs(n(tc_.prev_pts) - n(jc_.prev_pts)).max() <= 1e-12
+    assert np.abs(n(tc_.prev_u) - n(jc_.prev_u)).max() <= 1e-9
+
+
+@pytest.mark.parametrize("mode", ["batched", "srekf_fast"])
+def test_session_parity_fused_f64(traj_ctl, monkeypatch, mode):
+    """control_source='fused' with scans blanked mid-run (tests/
+    test_icp.py:142-170): the per-tick choice, ICP or odometry, equals
+    the one JAX's gates make from its own ICP figures, ticks of both
+    kinds occur (the first tick, the blanked ticks and the tick after
+    them take the odometry), and pose and u equal JAX's (≤ 1e-9)."""
+    if mode == "batched":
+        ep, rp = _params(jnp.float64)
+    else:
+        ep, rp = _sr_params(buffer=8)
+    ranges = np.asarray(traj_ctl.ranges).copy()
+    ranges[12:17] = np.nan                  # sensor dropout: ICP must lose
+    (jc_, jo, rec), (tc_, to) = _run_recorded(
+        monkeypatch, traj_ctl, ranges, ep, rp, control_source="fused",
+        icp_iters=15, icp_max_pair_dist=0.5, icp_min_inliers=30,
+        icp_max_rmse=0.25)
+    _assert_tracks(jo, to)
+    jax_ok = np.array([ni >= 30 and rm <= 0.25 for ni, rm in rec["icp"]])
+    got = n(to.icp_ok)
+    np.testing.assert_array_equal(got, jax_ok)
+    assert got.any() and not got.all()
+    assert not got[0] and not got[12:18].any()
+    odom = np.asarray(traj_ctl.odom)
+    dd = np.hypot(np.diff(odom[:, 0]), np.diff(odom[:, 1]))
+    np.testing.assert_allclose(n(to.u)[13:17, 0], dd[12:16], rtol=1e-12)
+
+
+@pytest.mark.parametrize("max_jump", [1.0, 0.005])
+def test_session_parity_guard_seam_f64(monkeypatch, max_jump):
+    """The guard on the seam run of tests/test_faults.py:59-72: the
+    ref-compat sequential session (capacity 16, one-seed search) over 150
+    ticks of 720 beams, with JAX's guard_max_jump of 1 m and with a tight
+    5 mm.  The port, given JAX's draws, takes JAX's verdict on every tick,
+    tracks JAX's pose within 1e-9 and stays on track (ATE < 1 m).  At 1 m
+    JAX's guard rejects no tick, so the run is the unguarded one: the
+    seam glitch its test names no longer throws the pose in this JAX
+    package.  At 5 mm the guard rejects the ticks whose correction moves
+    the pose further (7 of 150), on both sides alike."""
+    from test_sim_session import SIM_RANSAC, make_traj
+    traj, _ = make_traj(T=150)
+    ep = jc.EKFParams(capacity=16, max_obs=8, ref_compat=True,
+                      guard_max_jump=max_jump, dtype=jnp.float64)
+    (jc_, jo, rec), (tc_, to) = _run_recorded(
+        monkeypatch, traj, traj.ranges, ep, SIM_RANSAC)
+    jax_ok = np.array(rec["guard"])
+    got = n(to.guard_ok)
+    assert len(jax_ok) == 150
+    rejected = np.flatnonzero(~got)
+    np.testing.assert_array_equal(got, jax_ok,
+                                  err_msg=f"port rejects {rejected}")
+    assert len(rejected) == (7 if max_jump < 1 else 0)
+    _assert_tracks(jo, to)
+    truth = np.asarray(traj.truth)
+    ate = np.sqrt(np.mean(np.sum((n(to.pose)[:, :2] - truth[:, :2]) ** 2,
+                                 -1)))
+    assert ate < 1.0
+
+
+@pytest.mark.parametrize("mode", ["batched", "srekf_fast"])
+def test_guarded_session_leaves_rejected_ticks_bit_for_bit(traj_ctl,
+                                                            monkeypatch,
+                                                            mode):
+    """A session whose guard is tight (0.2 mm), so that some ticks are
+    rejected: on each rejected tick the filter's x and P (or S) after the
+    tick are, bit for bit, what the measurement was handed (copied by a
+    spy before it could write in place); accepted ticks leave what the
+    measurement made."""
+    from ekf_slam_tpu_torch import session as tsess
+    if mode == "batched":
+        ep, rp = (port(p) for p in _params(jnp.float64))
+        name = "measure_batched"
+    else:
+        ep, rp = (port(p) for p in _sr_params(buffer=64))
+        name = "sr_measure_fast"
+    ep = dataclasses.replace(ep, guard_max_jump=2e-4)
+    real = getattr(tsess, name)
+    seen = {}
+
+    def spy(filt, obs, u, params):
+        seen["in"] = (filt.x.clone(), filt.P.clone())
+        out = real(filt, obs, u, params)
+        seen["out"] = (out.x.clone(), out.P.clone())
+        return out
+    monkeypatch.setattr(tsess, name, spy)
+    ts = TSession(ekf_params=ep, ransac_params=rp, seed=SEED, device="cpu")
+    draws = _draws_for(_params(jnp.float64)[1], SEED, T_CTL, B)
+    carry = ts.init_carry(first_odom=np.array(traj_ctl.odom[0]))
+    verdicts = []
+    for k in range(T_CTL):
+        carry, out = ts.step(carry, np.array(traj_ctl.odom[k]),
+                             np.array(traj_ctl.ranges[k]),
+                             t(traj_ctl.beam_angles), draws=draws[k])
+        ok = bool(out.guard_ok)
+        verdicts.append(ok)
+        x, P = seen["out"] if ok else seen["in"]
+        assert torch.equal(carry.filt.x.view(torch.int64), x.view(torch.int64))
+        assert torch.equal(carry.filt.P.view(torch.int64), P.view(torch.int64))
+    assert any(verdicts) and not all(verdicts)
+
+
+@pytest.mark.parametrize("mode", ["batched", "srekf_fast"])
+def test_session_parity_maintenance_f64(traj_ctl, monkeypatch, mode):
+    """Map maintenance on the batched and the square-root (srekf_fast,
+    8-column buffer, so recompressions as well) sessions at f64, with a
+    merge radius and a trace cap that evict: the evictions each tick
+    equal JAX's (some ticks evict), n_active equal every tick, pose ≤
+    1e-9; the final state within 1e-9 of JAX's."""
+    if mode == "batched":
+        ep, rp = _params(jnp.float64)
+    else:
+        ep, rp = _sr_params(buffer=8)
+    (jc_, jo, rec), (tc_, to) = _run_recorded(
+        monkeypatch, traj_ctl, traj_ctl.ranges, ep, rp,
+        maintain_merge_radius=3.0, maintain_max_trace=0.02)
+    got = n(to.n_evicted)
+    np.testing.assert_array_equal(got, np.array(rec["evicted"]))
+    assert got.sum() > 0 and (got > 0).sum() < T_CTL
+    _assert_tracks(jo, to)
+    assert max_rel(tc_.filt.x, jc_.filt.x) <= 1e-9
+    assert max_rel(tc_.filt.P, jc_.filt.P) <= 1e-9
+
+
+T_CAMP = 50
+
+
+def test_session_parity_campaign_f64(monkeypatch):
+    """The large-world campaign's session with every feature at once, as
+    chip_smoke.py's phase 10 runs it at 10k landmarks, here at capacity
+    128 and f64: checks.campaign_params (ML gate, the fitted R, the
+    guard at 0.5 m, NH = 192 with refits and splits, 'nearest' matching,
+    'sig' write-back) with tuned_params, fused control with the
+    campaign's ICP gates and maintenance at 0.4 m (checks.
+    CAMPAIGN_SESSION), over the first 50 ticks of checks.campaign_route
+    (3 × 3 rooms, 1024 beams, heading noise 0.5°), the sim run by JAX,
+    with scans 20-22 blanked and the odometry moved 0.6 m at tick 21, so
+    that ticks 20-23 fall back to the odometry and the mapped duplicates
+    are merged.  The port, given JAX's draws, makes JAX's choice of
+    control, the guard's verdict (every tick accepted) and the evictions
+    on every tick, and its pose and u stay within 1e-9 of JAX's."""
+    import os
+    import runpy
+    from ekf_slam_tpu.utils.schedule import tuned_params as jtuned
+    from ekf_slam_tpu_torch.checks import (CAMPAIGN_SESSION, campaign_params,
+                                           campaign_route)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ex = runpy.run_path(os.path.join(root, "examples", "large_world_slam.py"))
+    ep, rp = ex["campaign_params"](128, jnp.float64, "fused", 0.5)
+    ep = jtuned(ep, batch=ep.max_obs)
+    assert (port(ep), port(rp)) == campaign_params(128, torch.float64,
+                                                   "fused", 0.5)
+    world, ctrl, start = campaign_route(3, T_CAMP)
+    cfg = jc.SimConfig(n_beams=1024, max_range=10.0, range_noise_std=0.01,
+                       odom_xy_noise_std=0.004, odom_theta_noise_std=0.5,
+                       dtype=jnp.float64)
+    traj = jw.simulate(jw.World(jnp.asarray(n(world.segments))),
+                       jnp.asarray(ctrl), cfg, jax.random.PRNGKey(0),
+                       start_pose=tuple(start))
+    ranges = np.array(traj.ranges)
+    ranges[20:23] = np.nan              # dropout: ticks 20-23 use odometry
+    odom = np.array(traj.odom)
+    odom[21:, 0] += 0.6              # a 0.6 m odometry jump at tick 21
+    traj = traj._replace(odom=jnp.asarray(odom))
+    (jc_, jo, rec), (tc_, to) = _run_recorded(
+        monkeypatch, traj, ranges, ep, rp, init_pose=start,
+        control_source="fused", **CAMPAIGN_SESSION)
+    jax_ok = np.array([ni >= 200 and rm <= 0.08 for ni, rm in rec["icp"]])
+    np.testing.assert_array_equal(n(to.icp_ok), jax_ok)
+    np.testing.assert_array_equal(n(to.guard_ok), np.array(rec["guard"]))
+    np.testing.assert_array_equal(n(to.n_evicted), np.array(rec["evicted"]))
+    _assert_tracks(jo, to)
+    np.testing.assert_array_equal(np.flatnonzero(~jax_ok), [0, 20, 21, 22, 23])
+    assert n(to.n_evicted).sum() > 0
+    assert n(to.n_active)[-1] >= 3
+
+
+def test_carry_from_numpy_icp_carry(traj_ctl):
+    """convert.carry_from_numpy takes a fused JAX carry after four ticks:
+    the previous scan, its mask and the previous control arrive with
+    every other leaf equal, and the port's next tick from it equals
+    JAX's (pose and u ≤ 1e-9)."""
+    ep, rp = _params(jnp.float64)
+    kw = dict(control_source="fused", icp_iters=15, icp_max_pair_dist=0.5)
+    js = JSession(ekf_params=ep, ransac_params=rp, seed=SEED, **kw)
+    jcarry, _ = js.run(traj_ctl.odom[:4], traj_ctl.ranges[:4],
+                       traj_ctl.beam_angles,
+                       carry=js.init_carry(first_odom=traj_ctl.odom[0],
+                                           n_beams=B))
+    tcarry = convert.carry_from_numpy(jax.tree.map(np.asarray, jcarry),
+                                      device="cpu")
+    for f in ("prev_pts", "prev_valid", "prev_u", "old_odom"):
+        np.testing.assert_array_equal(n(getattr(tcarry, f)),
+                                      n(getattr(jcarry, f)), err_msg=f)
+    assert tcarry.prev_valid.dtype == torch.bool
+    for part in ("filt", "table"):
+        for f in getattr(tcarry, part)._fields:
+            np.testing.assert_array_equal(
+                n(getattr(getattr(tcarry, part), f)),
+                n(getattr(getattr(jcarry, part), f)), err_msg=f)
+    jnext, jo = js.step(jcarry, traj_ctl.odom[4], traj_ctl.ranges[4],
+                        traj_ctl.beam_angles)
+    ts = TSession(ekf_params=port(ep), ransac_params=port(rp), seed=SEED,
+                  device="cpu", **kw)
+    tnext, to = ts.step(tcarry, np.array(traj_ctl.odom[4]),
+                        np.array(traj_ctl.ranges[4]),
+                        t(traj_ctl.beam_angles),
+                        draws=_draws_for(rp, SEED, 5, B)[4])
+    assert np.abs(n(to.pose) - n(jo.pose)).max() <= 1e-9
+    assert np.abs(n(to.u) - n(jo.u)).max() <= 1e-9
