@@ -215,7 +215,33 @@ Phases (each prints one line; any failure exits non-zero with no result):
    eviction on S [20067²] f32 (the state's Cholesky factor): one K6
    launch, the new factor finite and lower triangular with the freed
    rows 0, and the Gram of 64 of its kept rows within checks.gram_compare's
-   limit of the f64 Gram of the old factor's kept rows.
+   limit of the f64 Gram of the old factor's kept rows;
+11. the live operating path on phase 6's configuration (tuned_params at
+   capacity 10000, bf16 P [20480²]): io/stream.StreamingSlamSession fed
+   host numpy arrays a tick at a time, the flagship run's first 64
+   ticks cycled 4 times (bench.py's stream shape), window 16,
+   max_pending 2.  11a: the stream against an offline run of a fresh
+   session with the same seed on the card, with the counters set to 0
+   just before the stream and read just after (one K1 and one
+   wall_search launch a tick, no other) and PyTorch's sync debug mode
+   over the whole run (no host sync but at the stream's event wait);
+   poses and n_active bit-equal on every tick, or, where not, both runs
+   again under torch.use_deterministic_algorithms (the ops without a
+   deterministic version printed) with every decision (n_active, n_obs,
+   the observations' validity and slots) still equal; then three runs
+   each at window 16 and window 1, in turns, each checked the same way:
+   the medians of StreamStats.summary() (ticks/s, latency p50, p99 and
+   mean) with their spreads.  11b: the socket feed: the port's Python
+   feeder (io/socket_feed.serve_trajectory) in a spawned process on
+   localhost sends the 64 ticks, io/socket_feed.SocketScanSource
+   receives them and the stream runs them, equal to the offline run's
+   first 64 ticks; then the port's C++ codec writes them as a scan log
+   (native=True, read back exactly) and the C++ feeder
+   (native_feeder_path(), built with g++ into build/torch_native/)
+   replays it over TCP, with the same check.  11c: filter_health on the
+   10k state at the end of each window of a 256-tick stream, logged
+   with MetricsLogger to a temporary JSONL file: finite on every window;
+   the last window's asym, min_diag and trace printed.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  A kernel's `launches` in the JSON is its
@@ -233,18 +259,21 @@ now runs inside wall_search on every path (its side calls are phase
 `launch_floor_ms`, `floor_bound_ms` and `floor_bound_by` ("launch" where
 the floor is the larger): the bound raised to the launch floor, beside
 `bound_ms`.  K1's and wall_search's entries also carry
-`campaign_launches` (phase 10's counts), K6's `eviction_launches`
-(phase 10b's).  This script imports nothing of JAX or of ekf_slam_tpu.
+`campaign_launches` (phase 10's counts) and `stream_launches` (phase
+11a's), K6's `eviction_launches` (phase 10b's).  This script imports nothing of JAX or of ekf_slam_tpu.
 """
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -603,6 +632,10 @@ def main():
     from ekf_slam_tpu_torch.models import maintenance as MT
     from ekf_slam_tpu_torch.state import FilterState
     from ekf_slam_tpu_torch.utils.faults import corrupt_odometry, guarded
+    from ekf_slam_tpu_torch.utils.metrics import MetricsLogger, filter_health
+    from ekf_slam_tpu_torch.io import scanlog as SL
+    from ekf_slam_tpu_torch.io import socket_feed as SF
+    from ekf_slam_tpu_torch.io import stream as ST
     from ekf_slam_tpu_torch.ops import gating as G
     from ekf_slam_tpu_torch.ops import kernels as K
     from ekf_slam_tpu_torch.sim import world as W
@@ -2283,9 +2316,305 @@ def main():
         + f"); {fact_ms:.3f} ms (CUDA events, one call); card: {card}")
     del st_, S_, S_kept, out_, S2, G_rows, x_
     torch.cuda.empty_cache()
+    # -- 11. the live operating path: the stream and the socket feed ---------
+    # phase 6's configuration (tuned_params at capacity 10000, bf16 P
+    # [20480²], K1 at R = 16, one wall_search a tick) driven through
+    # StreamingSlamSession, fed from host numpy arrays as a live robot's
+    # feed arrives: the flagship run's first 64 ticks cycled 4 times
+    # (bench.py's stream shape, bench.py:434-489), window 16, max_pending 2
+    T11, C11, W11 = 64, 4, 16
+    ep11, rp11 = slice_params(torch, 10000)
+    ep11 = tuned_params(ep11, batch=ep11.max_obs)
+    odom64 = traj.odom[:T11].cpu().numpy()
+    rng64 = traj.ranges[:T11].cpu().numpy()
+    cyc11 = np.arange(C11 * T11) % T11
+    odom11, rng11 = odom64[cyc11], rng64[cyc11]
+    stream_file = os.path.relpath(ST.__file__, HERE)
+    with open(ST.__file__) as f_:
+        wait_lines = {f"{stream_file}:{i + 1}" for i, line in enumerate(f_)
+                      if "event.synchronize()" in line}
+    check(len(wait_lines) == 1, f"stream.py's event waits: {wait_lines}")
+
+    def fresh11():
+        return tp.SlamSession(ekf_params=ep11, ransac_params=rp11, seed=1)
+
+    def stream11(window, ticks=None, per_window=None):
+        """A fresh session's stream over ``ticks`` (odometry, ranges),
+        pushed one tick at a time, then flushed; ``per_window(stream, w)``
+        after each full window's dispatch.  The stream, its outputs and
+        the syncs the run made (PyTorch's sync debug mode)."""
+        od_, rg_ = ticks if ticks is not None else (odom11, rng11)
+        st_ = ST.StreamingSlamSession(fresh11(), n_beams=rg_.shape[1],
+                                      beam_angles=traj.beam_angles,
+                                      window=window, max_pending=2,
+                                      first_odom=od_[0])
+        torch.cuda.synchronize()
+        got_ = []
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught_:
+            warnings.simplefilter("always")
+            for t_ in range(od_.shape[0]):
+                got_.extend(st_.push(od_[t_], rg_[t_]))
+                if per_window is not None and (t_ + 1) % window == 0:
+                    per_window(st_, (t_ + 1) // window)
+            got_.extend(st_.flush())
+        torch.cuda.set_sync_debug_mode(0)
+        syncs_ = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+                  for w in caught_ if "synchroniz" in str(w.message)]
+        check(len(got_) == od_.shape[0] and not st_._pending,
+              f"stream: {len(got_)} of {od_.shape[0]} ticks handed back")
+        return st_, got_, syncs_
+
+    def same_run(got_, want_, decisions_only=False):
+        """The ticks whose outputs differ from the offline run's (poses
+        and n_active bit for bit, or only the decisions: n_active, n_obs,
+        the observations' validity and slots)."""
+        fields = ([("n_active",), ("n_obs",), ("obs", "valid"),
+                   ("obs", "index")] if decisions_only
+                  else [("pose",), ("n_active",)])
+        bad = set()
+        for path in fields:
+            a = np.stack([o._asdict()[path[0]] if len(path) == 1
+                          else getattr(o.obs, path[1]) for o in got_])
+            w_ = getattr(want_, path[0]) if len(path) == 1 else getattr(
+                want_.obs, path[1])
+            w_ = w_[:a.shape[0]].cpu().numpy()
+            bad |= set(np.nonzero((a != w_).reshape(a.shape[0], -1)
+                                  .any(axis=1))[0].tolist())
+        return sorted(bad)
+
+    # 11a: the offline run on the card, then the stream against it
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    carry11, off11 = fresh11().run(odom11, rng11, traj.beam_angles)
+    torch.cuda.synchronize()
+    off_tps11 = C11 * T11 / (time.perf_counter() - w0)
+    P11 = f"{ep11.cov_dt} P [{carry11.filt.P.shape[0]}²]".replace("torch.", "")
+    del carry11
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for fn in counted.values():
+        fn.launches = 0
+    st11, got11, syncs11 = stream11(W11)
+    launches11 = {k: fn.launches for k, fn in counted.items()}
+    del st11
+    torch.cuda.empty_cache()
+    n_ticks11 = C11 * T11
+    check(launches11 == dict(syrk_downdate=n_ticks11, gate_costs=0,
+                             score_lines=0, wall_search=n_ticks11,
+                             cov_update=0, pair_gather=0, syrk_gram=0),
+          f"stream launches {launches11}, expected {n_ticks11} "
+          f"syrk_downdate, {n_ticks11} wall_search and no other")
+    outside11 = [s_ for s_ in syncs11 if s_ not in wait_lines]
+    check(not outside11, f"stream: {len(outside11)} host syncs outside the "
+          f"event waits, at {sorted(set(outside11))}")
+    differ11 = same_run(got11, off11)
+    nondet11 = None
+    if differ11:
+        # not bit-equal: both again with PyTorch's deterministic algorithms
+        # (warnings name the ops that have none), and every decision must
+        # still be equal
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught_d:
+            warnings.simplefilter("always")
+            _, off_d = fresh11().run(odom11, rng11, traj.beam_angles)
+            _, got_d, _ = stream11(W11)
+        torch.use_deterministic_algorithms(False)
+        nondet11 = sorted({str(w.message).split(".")[0][:160]
+                           for w in caught_d
+                           if "determinis" in str(w.message)})
+        log(f"phase 11 stream against the offline run: poses or n_active "
+            f"differ on {len(differ11)} ticks (first {differ11[:8]}); under "
+            f"torch.use_deterministic_algorithms they differ on "
+            f"{len(same_run(got_d, off_d))}; ops without a deterministic "
+            f"version: {nondet11}")
+        check(not same_run(got11, off11, True)
+              and not same_run(got_d, off_d, True),
+              "stream against the offline run: a decision differs")
+        del off_d, got_d
+    pose_gap11 = max(float(np.abs(o.pose - off11.pose[i].cpu().numpy())
+                           .max()) for i, o in enumerate(got11))
+    n11 = int(off11.n_active[-1])
+    check(n11 > 0, "stream: no landmark mapped")
+    log(f"phase 11 stream against the offline run ok: capacity "
+        f"{ep11.capacity}, {P11}, {n_ticks11} ticks ({T11} "
+        f"cycled {C11} times), window {W11}, max_pending 2, "
+        f"{'bit-equal poses and n_active on every tick' if not differ11 else f'decisions equal, pose gap {pose_gap11:.3e}'}"
+        f", n_active {n11}; launches {launches11} (one K1 and one "
+        f"wall_search a tick); host syncs in the whole run: "
+        f"{len(outside11)} outside the event waits, {len(syncs11)} in all "
+        f"({len(syncs11) / (n_ticks11 / W11):.2f} a window, at "
+        f"{sorted(set(syncs11))}); the offline run itself "
+        f"{off_tps11:.3f} ticks/s (wall clock, the session's construction "
+        f"and the upload of the inputs included); card: {card}")
+
+    # the stream's throughput and latency: three runs a window size in
+    # turns (16, 1, 1, 16, 16, 1), each a fresh session, each checked
+    # against the offline run
+    sums11 = {W11: [], 1: []}
+    for w_ in (W11, 1, 1, W11, W11, 1):
+        st_, got_, _ = stream11(w_)
+        bad_ = same_run(got_, off11, decisions_only=bool(differ11))
+        check(not bad_, f"stream at window {w_}: ticks {bad_[:8]} differ "
+              f"from the offline run")
+        sums11[w_].append(st_.stats.summary())
+        del st_, got_
+        torch.cuda.empty_cache()
+    keys11 = ("ticks_per_sec", "latency_p50_ms", "latency_p99_ms",
+              "latency_mean_ms")
+    med11 = {w_: {k: statistics.median(s_[k] for s_ in v)
+                  for k in keys11} for w_, v in sums11.items()}
+    spread11 = {w_: {k: 100 * (max(s_[k] for s_ in v)
+                               - min(s_[k] for s_ in v)) / med11[w_][k]
+                     for k in keys11} for w_, v in sums11.items()}
+    for w_ in (W11, 1):
+        m_ = med11[w_]
+        log(f"phase 11 stream window {w_}: {m_['ticks_per_sec']:.3f} "
+            f"ticks/s, latency p50 {m_['latency_p50_ms']:.3f} ms, p99 "
+            f"{m_['latency_p99_ms']:.3f} ms, mean "
+            f"{m_['latency_mean_ms']:.3f} ms (medians of 3 runs of "
+            f"{n_ticks11} ticks, StreamStats.summary(); spreads "
+            + ", ".join(f"{k} {spread11[w_][k]:.1f}%" for k in keys11)
+            + "; runs " + "; ".join(
+                f"{s_['ticks_per_sec']:.3f}/s p50 {s_['latency_p50_ms']:.3f}"
+                for s_ in sums11[w_])
+            + f"); card: {card}")
+
+    # 11b: the socket feed.  A spawned process (the CUDA context must not
+    # be forked) runs the port's Python feeder on localhost; the stream
+    # consumes the feed at window 16 and must give the offline run's first
+    # 64 ticks
+    def free_port():
+        with socket.socket() as s_:
+            s_.bind(("127.0.0.1", 0))
+            return s_.getsockname()[1]
+
+    def consume(port_, connect_s, retry=None):
+        """Connect (retrying until ``retry`` says stop) and stream the
+        feed through a fresh session: the outputs and the syncs."""
+        t_end = time.monotonic() + connect_s
+        while True:
+            try:
+                src_ = SF.SocketScanSource("127.0.0.1", port_,
+                                           connect_timeout=10.0,
+                                           timeout=120.0)
+                break
+            except ConnectionRefusedError:
+                check(time.monotonic() < t_end and (retry is None
+                                                    or retry()),
+                      f"no scan feed came up on port {port_}")
+                time.sleep(0.05)
+        check(src_.n_beams == 1024 and src_.dtype == np.float32,
+              f"feed header: {src_.n_beams} beams, {src_.dtype}")
+        frames_ = list(src_)
+        check(len(frames_) == T11, f"feed sent {len(frames_)} ticks")
+        od_ = np.stack([o for o, _ in frames_])
+        rg_ = np.stack([r for _, r in frames_])
+        check(np.array_equal(od_, odom64)
+              and np.array_equal(rg_, rng64, equal_nan=True),
+              "the feed's frames differ from the arrays fed")
+        return stream11(W11, ticks=(od_, rg_))
+
+    ctx11 = multiprocessing.get_context("spawn")
+    port11 = free_port()
+    ready11 = ctx11.Event()
+    feeder = ctx11.Process(target=SF.serve_trajectory,
+                           args=(port11, odom64, rng64),
+                           kwargs=dict(ready_event=ready11, timeout=120.0),
+                           daemon=True)
+    w0 = time.perf_counter()
+    feeder.start()
+    try:
+        check(ready11.wait(120), "the Python feeder never came up")
+        _, got_py, syncs_py = consume(port11, 60.0)
+        feeder.join(60)
+        check(feeder.exitcode == 0, f"feeder exit code {feeder.exitcode}")
+    finally:
+        if feeder.is_alive():
+            feeder.terminate()
+            feeder.join(10)
+    py_s = time.perf_counter() - w0
+    bad_py = same_run(got_py, off11, decisions_only=bool(differ11))
+    check(not bad_py, f"socket feed (Python feeder): ticks {bad_py[:8]} "
+          f"differ from the offline run")
+    # the native path: the port's C++ codec writes the 64 ticks as a scan
+    # log, the C++ feeder replays it over the same protocol
+    with tempfile.TemporaryDirectory() as td11:
+        log_path = os.path.join(td11, "flagship.ekslog")
+        SL.write(log_path, odom64, rng64, native=True)
+        lo_, lr_ = SL.read(log_path, native=True)
+        check(np.array_equal(lo_, odom64)
+              and np.array_equal(lr_, rng64, equal_nan=True),
+              "scan log round trip (C++ codec)")
+        binary11 = SF.native_feeder_path()
+        check(binary11 is not None, "native_feeder_path() built no feeder "
+              "(no g++?)")
+        port11 = free_port()
+        w0 = time.perf_counter()
+        proc11 = subprocess.Popen([binary11, log_path, str(port11)],
+                                  stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.PIPE)
+        try:
+            _, got_nat, syncs_nat = consume(
+                port11, 60.0, retry=lambda: proc11.poll() is None)
+            err11 = proc11.communicate(timeout=60)[1].decode()
+            check(proc11.returncode == 0, f"C++ feeder exit code "
+                  f"{proc11.returncode}: {err11}")
+        finally:
+            if proc11.poll() is None:
+                proc11.kill()
+                proc11.wait(10)
+        nat_s = time.perf_counter() - w0
+    bad_nat = same_run(got_nat, off11, decisions_only=bool(differ11))
+    check(not bad_nat, f"socket feed (C++ feeder): ticks {bad_nat[:8]} "
+          f"differ from the offline run")
+    for name_, sy_ in (("Python", syncs_py), ("C++", syncs_nat)):
+        out_ = [s_ for s_ in sy_ if s_ not in wait_lines]
+        check(not out_, f"socket feed ({name_} feeder): host syncs outside "
+              f"the event waits at {sorted(set(out_))}")
+    log(f"phase 11 socket feed ok: {T11} ticks over TCP on localhost into "
+        f"the stream (capacity {ep11.capacity}, window {W11}), "
+        f"{'bit-equal poses and n_active' if not differ11 else 'decisions equal'}"
+        f" against the offline run, from the port's Python feeder in a "
+        f"spawned process ({py_s:.3f} s with the process start) and from "
+        f"the C++ feeder ({os.path.relpath(binary11, HERE)}) replaying a "
+        f"scan log written by the port's C++ codec ({nat_s:.3f} s); no host "
+        f"sync outside the event waits; card: {card}")
+
+    # 11c: filter health at the end of each window, logged as JSONL
+    with tempfile.TemporaryDirectory() as td11:
+        jsonl = os.path.join(td11, "health.jsonl")
+        logger11 = MetricsLogger(jsonl)
+
+        def health(st_, w_):
+            logger11.log(w_, **filter_health(st_.carry.filt)._asdict())
+        try:
+            st_, got_, _ = stream11(W11, per_window=health)
+        finally:
+            logger11.close()
+        with open(jsonl) as f_:
+            recs11 = [json.loads(line) for line in f_]
+    bad_h = same_run(got_, off11, decisions_only=bool(differ11))
+    check(not bad_h, f"stream with health logging: ticks {bad_h[:8]} differ")
+    check(len(recs11) == n_ticks11 // W11
+          and all(r["finite"] is True for r in recs11),
+          f"filter health: {len(recs11)} records, finite "
+          f"{[r['finite'] for r in recs11]}")
+    last11 = recs11[-1]
+    log(f"phase 11 filter health ok: {len(recs11)} windows logged "
+        f"(MetricsLogger JSONL), finite on every one; last window (tick "
+        f"{n_ticks11}, n_active {int(got_[-1].n_active)}): asym "
+        f"{last11['asym']!r}, min_diag {last11['min_diag']!r}, trace "
+        f"{last11['trace']!r} ({P11}, masked past 3 + 2·n_active); "
+        f"card: {card}")
+    del st_, got_, got11, got_py, got_nat, off11
+    torch.cuda.empty_cache()
+
     kernels["syrk_downdate"]["campaign_launches"] = launches10["syrk_downdate"]
     kernels["wall_search"]["campaign_launches"] = launches10["wall_search"]
     kernels["syrk_gram"]["eviction_launches"] = launches10b["syrk_gram"]
+    kernels["syrk_downdate"]["stream_launches"] = launches11["syrk_downdate"]
+    kernels["wall_search"]["stream_launches"] = launches11["wall_search"]
 
     print(json.dumps({"kernels": [dict(name=n, **k)
                                   for n, k in kernels.items()]}))

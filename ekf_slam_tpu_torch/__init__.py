@@ -28,7 +28,12 @@ the session also takes ``control_source="icp"`` or ``"fused"``
 (scan-to-scan ICP, ops/icp.py), the fault guard
 (``EKFParams(guard_max_jump=...)``, utils/faults.py) and map maintenance
 (``maintain_merge_radius``, ``maintain_max_trace``,
-models/maintenance.py).  The exports are the
+models/maintenance.py).  The live operating path drives a session as
+ticks arrive: ``io.stream.StreamingSlamSession`` (windows of ticks,
+read back through one CUDA event a window), fed by ``push`` or by
+``io.socket_feed.SocketScanSource`` over TCP, with the scan-log codec
+(``io.scanlog``), the odometry quaternions (``utils.quat``) and the
+filter-health metrics (``utils.metrics``).  The exports are the
 JAX package's but ``MeshConfig``, which comes with the distributed
 layers (ROADMAP §1 item 6).
 """

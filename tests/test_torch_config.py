@@ -132,14 +132,37 @@ def _imports(path: pathlib.Path):
             yield node.module
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+def _scanned_files():
+    """The files the import scan reads: every module of the port and
+    chip_smoke.py."""
     files = sorted((ROOT / "ekf_slam_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _scanned_files()
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "ekf_slam_tpu"), (f, mod)
+
+
+@pytest.mark.parametrize("module", [
+    "io/stream.py", "io/socket_feed.py", "io/scanlog.py", "io/native.py",
+    "utils/quat.py", "utils/metrics.py"])
+def test_import_scan_covers_the_operating_modules(module):
+    """The live operating path's modules are the port's own copies: the
+    scan reads each, and each imports neither JAX nor the JAX package
+    (io/scanlog.py and io/socket_feed.py, jax-free in the JAX package,
+    are copied, not imported)."""
+    path = ROOT / "ekf_slam_tpu_torch" / module
+    assert path in _scanned_files()
+    mods = list(_imports(path))
+    assert mods and not any(m.split(".")[0] in ("jax", "jaxlib",
+                                                "ekf_slam_tpu")
+                            for m in mods), mods
 
 
 def test_exports_match():

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card (K1 syrk_downdate, K2 gate_costs,
 K3 score_lines and the one-launch wall search, K4 cov_update, K5
 pair_gather, K6 syrk_gram), held against their plain versions; the
-blocked Cholesky's NaN on failure without a host sync; the square-root recompression's QR branch; and the
+blocked Cholesky's NaN on failure without a host sync; the square-root recompression's QR branch; the
 tuned, kernel-path and square-root sessions on the card against the
-CPU.
+CPU; and the live operating path: the streaming session against the
+offline run on the card, and filter_health without a host sync.
 
 Marked ``cuda``: each test skips, with its reason, where torch sees no
 CUDA device, as on a CPU-only machine.  On a GPU machine (which need not
@@ -12,6 +13,7 @@ have JAX) run them without the suite's JAX conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 This file imports neither JAX nor ekf_slam_tpu."""
+import numpy as np
 import pytest
 import torch
 
@@ -684,3 +686,70 @@ def test_noise_floor_on_card_does_not_sync(dev):
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(R.cpu(), ekf._rc_floor(p, "cpu"))
     assert R[0, 0].item() == torch.tensor(0.05 ** 2).item()
+
+
+def test_stream_on_card_matches_run(dev):
+    """A short stream at small capacity on the card (rows + SYRK, 20 ticks
+    in windows of 8, so the flush runs a remainder window) equals the
+    offline run on the card bit for bit, fed the same draws; its outputs
+    are numpy, read through pinned copies and one event a window; it
+    launches one SYRK and one wall_search a tick."""
+    from ekf_slam_tpu_torch import EKFParams, RansacParams, SlamSession
+    from ekf_slam_tpu_torch.checks import session_inputs
+    from ekf_slam_tpu_torch.io.stream import StreamingSlamSession
+    ep = EKFParams(capacity=64, max_obs=8, ref_compat=False,
+                   update_mode="batched", pht_mode="rows", correction="syrk")
+    rp = RansacParams(line_consensus=30, bearing_window_deg=15.0,
+                      wall_search_timeout=4, table_capacity=64,
+                      promote_count=5, ref_compat=False, n_hypotheses=32)
+    T = 20
+    odom, ranges, beams, draws = session_inputs(rp, T, 512)
+    draws = [(u.to(dev), s.to(dev)) for u, s in draws]
+    _, off = SlamSession(ekf_params=ep, ransac_params=rp).run(
+        odom, ranges, beams, draws=draws)
+    stream = StreamingSlamSession(SlamSession(ekf_params=ep, ransac_params=rp),
+                                  n_beams=512, beam_angles=beams, window=8,
+                                  first_odom=odom[0].numpy())
+    K.syrk_downdate.launches = K.wall_search.launches = 0
+    got = []
+    for i in range(T):
+        got.extend(stream.push(odom[i].numpy(), ranges[i].numpy(),
+                               draws=draws[i]))
+    got.extend(stream.flush())
+    assert (K.syrk_downdate.launches, K.wall_search.launches) == (T, T)
+    assert len(got) == T and not stream._pending
+    assert isinstance(got[0].pose, np.ndarray)
+    for f in ("pose", "n_active", "n_obs", "u"):
+        assert np.array_equal(np.stack([getattr(o, f) for o in got]),
+                              getattr(off, f).cpu().numpy()), f
+    assert int(off.n_active[-1]) > 0
+
+
+def test_filter_health_on_card_does_not_sync(dev):
+    """filter_health on a padded bf16 P on the card reads nothing back to
+    the host, and gives the CPU's finite, min_diag and trace (asym and
+    trace within a bf16 rounding: the sums run in other orders)."""
+    from ekf_slam_tpu_torch.state import FilterState
+    from ekf_slam_tpu_torch.utils.metrics import filter_health
+    g = torch.Generator().manual_seed(4)
+    D, na = 512, 100
+    A = torch.randn((203, 203), generator=g, dtype=torch.float64) * 0.1
+    P = torch.zeros((D, D), dtype=torch.float64)
+    P[:203, :203] = A @ A.T + 0.05 * torch.eye(203)
+    P[203:, 203:] = -torch.eye(D - 203)
+    st = FilterState(x=torch.randn(D, generator=g), P=P.to(torch.bfloat16),
+                     sig=torch.zeros(256), active=torch.arange(256) < na,
+                     n_active=torch.tensor(na, dtype=torch.int32))
+    on = FilterState(*(v.to(dev) for v in st))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = filter_health(on)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = filter_health(st)
+    assert bool(h.finite) and bool(want.finite)
+    assert h.min_diag.item() == want.min_diag.item() > 0
+    for f in ("asym", "trace"):
+        a, b = getattr(h, f).float().item(), getattr(want, f).float().item()
+        assert abs(a - b) <= 2.0 ** -7 * max(abs(b), 1e-30), f
