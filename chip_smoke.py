@@ -203,7 +203,7 @@ Phases (each prints one line; any failure exits non-zero with no result):
    operations and time a call, the guard's passes against their 6·|P|
    HBM bound and duplicate_mask's time; then the first 32 ticks again
    with every feature on, the guard off, maintenance off and odometry
-   control, four runs each in turns, for what each feature costs a tick
+   control, two runs each in turns, for what each feature costs a tick
    (resolved only where every run without the feature is faster than
    every run with all on);
 10b. eviction at full width: checks.evict_case (bench.py's full state
@@ -241,9 +241,54 @@ Phases (each prints one line; any failure exits non-zero with no result):
    replays it over TCP, with the same check.  11c: filter_health on the
    10k state at the end of each window of a 256-tick stream, logged
    with MetricsLogger to a temporary JSONL file: finite on every window;
-   the last window's asym, min_diag and trace printed.
+   the last window's asym, min_diag and trace printed;
+12. the submap and fleet layer (ekf_slam_tpu_torch/parallel/), after
+   phases 6-11 freed their tensors.  12a: FleetSlamSession(n_sessions=4,
+   seed=100) at phase 6's configuration (tuned_params at capacity 10000,
+   P [4, 20480, 20480] bf16 stacked) on examples/fleet_mapping.py's
+   trajectories (rectangle_room(4, 3), circle_controls(T, 0.04 + 0.01·i,
+   2 + i), 1024 beams) for 64 fleet ticks, the counters set to 0 just
+   before and read after every tick, PyTorch's sync debug mode over the
+   run: exactly 4 K1 and 4 wall_search launches every fleet tick and no
+   other, no host sync, the bytes copied back into the stacked carry a
+   tick (fewer than one robot's P: P is updated in its slice), ATE per
+   robot < 0.5 m; each robot's poses, n_active, x and P bit-equal to a
+   solo SlamSession of seed 100 + i on the same inputs on the card; the
+   median fleet tick (CUDA events) beside the solo sessions' and phase
+   6's, and a profile line.  12b: robot_map_from_carry for each robot
+   (its first scan, guesses at the origin) and merge_maps with the
+   example's gates (60 inliers, 0.25 m RMS) on the card in f32, against
+   the CPU's f64 merge of the same maps: the same scan-match edges and
+   landmark counts, anchors and landmarks within MERGE_TOL_M and
+   MERGE_TOL_DEG (the CPU's own f32 gap printed beside); its time.  12c:
+   experiments/chip_r5_world.py:179-216's submap pipeline on phase 10's
+   route (the one cut: its first 2,000 ticks, five 400-tick submaps, the
+   least multiple of 400 from 1,600 whose run accepts a loop closure on
+   the card; the closures of the first 1,600 ticks, counted by the
+   detector over the run's first four submaps, are printed; 2,400 where
+   2,000 accept none): campaign_params(192, f32, 'fused', 0.5) with a 512-entry
+   table, fused control, the campaign's ICP gates and maintenance,
+   keyframes every 40 ticks; segment 0 bit-equal to a plain session over
+   its 400 ticks; one wall_search launch a tick and no other; every tick
+   exactly one host sync (maintenance's read), the segment boundaries'
+   syncs counted; detect_loop_closures_traj(radius 10, RMS 0.16, 120
+   inliers, 2 a pair, within 3 m and 5°) accepting at least one closure,
+   optimize(iters=30) True, every global pose and landmark finite, no
+   frozen P sharing storage with another or the guard's snapshot; the
+   aligned ATE (sim.world.align_se2) before and after the optimisation,
+   map_accuracy against cluster_feet(true_feet(world), 0.5) and the
+   wall-line score, the median segment tick and the seconds of closure
+   detection and optimize, with no accuracy threshold.  12d:
+   ParallelSubmapSlam(n_submaps=4) at 12c's filter and extractor
+   (odometry control) on the route's first 256 ticks with draws made on
+   the card: each segment's poses, x and P bit-equal to SubmapSlam in
+   64-tick segments given the same draws, 4 submaps, 5 graph nodes, one
+   wall_search launch a segment tick, a ragged T raising ValueError.
+   ``--phase12-only`` runs the build and phase 12 alone (development; no
+   result line).
 
-The last lines are the kernels JSON, the card's name and power limit, and
+Every log line starts with the seconds since the script started.  The
+last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  A kernel's `launches` in the JSON is its
 count from its path's run.  K1's entry (R = 16, phase 6's count) also has
 `wide_rank`: K1 at R = 1024, D = 20480, with its launches counted in
@@ -259,9 +304,12 @@ now runs inside wall_search on every path (its side calls are phase
 `launch_floor_ms`, `floor_bound_ms` and `floor_bound_by` ("launch" where
 the floor is the larger): the bound raised to the launch floor, beside
 `bound_ms`.  K1's and wall_search's entries also carry
-`campaign_launches` (phase 10's counts) and `stream_launches` (phase
-11a's), K6's `eviction_launches` (phase 10b's).  This script imports nothing of JAX or of ekf_slam_tpu.
+`campaign_launches` (phase 10's counts), `stream_launches` (phase
+11a's) and `fleet_launches` (phase 12a's), wall_search's also
+`submap_launches` (phases 12c and 12d together), K6's
+`eviction_launches` (phase 10b's).  This script imports nothing of JAX or of ekf_slam_tpu.
 """
+import copy
 import dataclasses
 import json
 import math
@@ -305,6 +353,17 @@ K1_BEFORE_MS = {16: 0.9956, 1024: 20.0199}
 K6_BEFORE_MS = 289.8155
 RECOMPRESSION_TICK_BEFORE_MS = 452.857
 
+# phase 12b's tolerance on the card's f32 map merge (ICP and the device
+# Gauss-Newton, whose sums run on atomics in no fixed order) against the
+# CPU's f64 merge of the same maps: anchors and merged landmarks within
+# 1e-3 m, anchor headings within 1e-2 degrees.  The CPU's own f32 merge of
+# examples/fleet_mapping.py's maps at capacity 2001 is 1.2e-5 m and
+# 1.8e-4 degrees off its f64 merge; this leaves two orders of magnitude for
+# the card's other summation orders, and stays two orders under the 0.3 m
+# landmark merge radius
+MERGE_TOL_M = 1e-3
+MERGE_TOL_DEG = 1e-2
+
 # device symbols of the port's kernels, as torch.profiler names them
 KERNEL_SYMBOLS = ("syrk_downdate_kernel", "gate_costs_kernel",
                   "score_lines_kernel", "wall_search_kernel",
@@ -312,8 +371,12 @@ KERNEL_SYMBOLS = ("syrk_downdate_kernel", "gate_costs_kernel",
                   "syrk_gram_kernel")
 
 
+_START = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """One line of the log, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _START:7.1f} s] {msg}", flush=True)
 
 
 def check(cond, msg):
@@ -408,6 +471,13 @@ def wall_search_work(B, NH, params, n_ok):
     return nbytes, ops
 
 
+def syncs_of(caught):
+    """file:line of each host sync PyTorch's sync-debug mode reported
+    among the recorded warnings ``caught``."""
+    return [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+            for w in caught if "synchroniz" in str(w.message)]
+
+
 def pose_gaps(a, b):
     """Largest position gap (m), heading gap (rad, wrapped) and the tick
     of the larger, between two [T, 3] pose tracks (x, y, theta_deg)."""
@@ -489,8 +559,8 @@ def profile_device(torch, body, n, unit):
             kernel_ms[kern] = sum(durs) / n / 1e3
             ours.append(f"{kern} {len(durs) / n:.0f}/{unit} at "
                         f"{sum(durs) / len(durs) / 1e3:.4f} ms device each")
-    units = {"tick": "ticks", "batch": "batches", "chain": "chains"}[unit] \
-        if n > 1 else unit
+    units = ({"batch": "batches"}.get(unit, f"{unit}s") if n > 1
+             else unit)
     return (
         f"{n} {units}, host window {window_us / n / 1e3:.3f} ms/{unit}, "
         f"device busy {busy / n / 1e3:.3f} ms/{unit} "
@@ -548,8 +618,7 @@ def full_width_run(torch, tp, W, counted, ep, rp, traj, T):
         warm, _ = sess.step(warm, traj.odom[3], traj.ranges[3],
                             traj.beam_angles)
     torch.cuda.set_sync_debug_mode(0)
-    syncs = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
-             for w in caught if "synchroniz" in str(w.message)]
+    syncs = syncs_of(caught)
     del warm
     torch.cuda.synchronize()
 
@@ -584,6 +653,464 @@ def full_width_run(torch, tp, W, counted, ep, rp, traj, T):
                f"{len(syncs)} host syncs in one tick at {syncs}")
     return dict(sess=sess, carry=carry, launches=launches, summary=summary,
                 tick_median=statistics.median(tick_ms))
+
+
+# phase 12's sizes: the fleet of four at phase 6's configuration
+# (capacity 10000); the campaign route in 400-tick submaps at the
+# campaign's per-submap capacity of 192, cut to its first 2,000 ticks: the
+# least multiple of 400 from 1,600 whose run accepts a loop closure on the
+# card (1,600 ticks accepted none: NVIDIA H100 80GB HBM3, 700.00 W, in a
+# run of phase 12 alone; each run rechecks it on its first four
+# submaps), with 2,400 where 2,000 accept none; 256 ticks of concurrent
+# submaps
+PHASE12 = dict(capacity=10000, robots=4, fleet_ticks=64, prof_ticks=8,
+               beams=1024, route_first=1600, route_ticks=2000,
+               route_max=2400, segment=400, sub_capacity=192, table=512,
+               parallel_ticks=256)
+
+
+def tick_census(torch, fn):
+    """Wrap a session's ``step`` so that every call records a CUDA-event
+    interval and the host syncs PyTorch's sync-debug mode reports inside
+    it (with the mode on around the caller).  Returns the wrapper and its
+    records: [(start event, end event, [file:line, ...])]."""
+    recs = []
+
+    def inner(*a, **k):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+        recs.append((e0, e1, syncs_of(caught)))
+        return out
+    return inner, recs
+
+
+def angle_gap(a, b):
+    return np.abs((np.asarray(a) - np.asarray(b) + 180.0) % 360.0 - 180.0)
+
+
+def fleet_and_submaps(torch, tp, W, counted, dev, card, tick6_ms, size):
+    """Phase 12: the submap and fleet layer (ekf_slam_tpu_torch/parallel/)
+    at full width.  Returns the kernels' launch counts for the JSON."""
+    from ekf_slam_tpu_torch.checks import (CAMPAIGN_SESSION, campaign_params,
+                                           campaign_route)
+    from ekf_slam_tpu_torch.parallel.fleet_merge import (merge_maps,
+                                                         robot_map_from_carry)
+    from ekf_slam_tpu_torch.parallel.multi import FleetSlamSession, tree_map
+    from ekf_slam_tpu_torch.parallel.parallel_submaps import (
+        ParallelSubmapSlam)
+    from ekf_slam_tpu_torch.parallel.submaps import SubmapSlam
+    from ekf_slam_tpu_torch.utils.schedule import tuned_params
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    def only(**want):
+        return {k: want.get(k, 0) for k in counted}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 12 start: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"allocated on the card after phases 1-11 freed theirs")
+
+    # -- 12a. the fleet: four robots of the tuned 10k session -----------------
+    # examples/fleet_mapping.py's trajectories: robot i drives
+    # circle_controls(T, 0.04 + 0.01·i, 2 + i) in rectangle_room(4, 3),
+    # simulated from generator seed i; FleetSlamSession(seed=100), so robot
+    # i draws from a generator seeded 100 + i
+    N, T, TP_ = size["robots"], size["fleet_ticks"], size["prof_ticks"]
+    ep, rp = slice_params(torch, size["capacity"])
+    ep = tuned_params(ep, batch=ep.max_obs)
+    cfg = tp.SimConfig(n_beams=size["beams"], max_range=12.0)
+    room = W.rectangle_room(4.0, 3.0, device=dev)
+    trajs = []
+    for i in range(N):
+        g_ = torch.Generator(device=dev)
+        g_.manual_seed(i)
+        trajs.append(W.simulate(room, W.circle_controls(
+            T + TP_, 0.04 + 0.01 * i, 2.0 + i, device=dev), cfg, g_))
+    odom = torch.stack([t_.odom for t_ in trajs], 1)             # [T,N,3]
+    ranges = torch.stack([t_.ranges for t_ in trajs], 1)         # [T,N,B]
+    beams = trajs[0].beam_angles
+    fleet = FleetSlamSession(n_sessions=N, ekf_params=ep, ransac_params=rp,
+                             seed=100, device=dev)
+    warm = fleet.init_carry(first_odoms=odom[0])
+    for t in range(2):
+        warm, _ = fleet.step(warm, odom[t], ranges[t], beams)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    carry = fleet.init_carry(first_odoms=odom[0])
+    p_bytes = carry.filt.P[0].numel() * carry.filt.P.element_size()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(T + 1)]
+    outs, per_tick, copied = [], [], []
+    zero()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            w0 = time.perf_counter()
+            ev[0].record()
+            for t in range(T):
+                before = read()
+                carry, o = fleet.step(carry, odom[t], ranges[t], beams)
+                ev[t + 1].record()
+                now = read()
+                per_tick.append({k: now[k] - before[k] for k in now})
+                copied.append(fleet.copied_bytes)
+                outs.append(o)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3 / T
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = syncs_of(caught)
+    launches12a = read()
+    fticks = [ev[t].elapsed_time(ev[t + 1]) for t in range(T)]
+    fo = tree_map(lambda *xs: torch.stack(xs), *outs)              # [T,N,...]
+    want_tick = only(syrk_downdate=N, wall_search=N)
+    bad = [t for t, c in enumerate(per_tick) if c != want_tick]
+    check(not bad, f"fleet: ticks {bad[:5]} launched {per_tick[bad[0]] if bad else None}, expected {want_tick} a fleet tick")
+    check(launches12a == only(syrk_downdate=N * T, wall_search=N * T),
+          f"fleet launches {launches12a}")
+    check(not syncs, f"fleet: {len(syncs)} host syncs in {T} fleet ticks "
+          f"at {sorted(set(syncs))[:8]}")
+    check(carry.filt.P.shape[0] == N
+          and carry.filt.P.dtype == torch.bfloat16
+          and carry.filt.P.shape[1] % 512 == 0,
+          f"fleet P is {tuple(carry.filt.P.shape)} {carry.filt.P.dtype}")
+    check(max(copied) < p_bytes, f"fleet: {max(copied)} bytes copied back "
+          f"in a tick, a robot's P is {p_bytes}: P was not updated in place")
+    ates = []
+    for i in range(N):
+        check(bool(torch.isfinite(carry.filt.x[i]).all())
+              and bool(torch.isfinite(carry.filt.P[i]).all()),
+              f"fleet robot {i}: state not finite")
+        check(int(fo.n_active[-1, i].item()) > 0,
+              f"fleet robot {i}: no landmark mapped")
+        ates.append(W.ate_rmse(fo.pose[:, i, :2],
+                               trajs[i].truth[:T, :2]).item())
+    check(max(ates) < 0.5, f"fleet: ATE {ates} m against the truth")
+    # each robot against a solo session of seed 100 + i on its inputs
+    solo_ticks = []
+    for i in range(N):
+        s_ = tp.SlamSession(ekf_params=ep, ransac_params=rp, seed=100 + i,
+                            device=dev)
+        c_ = s_.init_carry(first_odom=odom[0, i])
+        ev_ = [torch.cuda.Event(enable_timing=True) for _ in range(T + 1)]
+        po_, na_ = [], []
+        ev_[0].record()
+        for t in range(T):
+            c_, o_ = s_.step(c_, odom[t, i], ranges[t, i], beams)
+            ev_[t + 1].record()
+            po_.append(o_.pose)
+            na_.append(o_.n_active)
+        torch.cuda.synchronize()
+        solo_ticks += [ev_[t].elapsed_time(ev_[t + 1]) for t in range(T)]
+        check(torch.equal(torch.stack(po_), fo.pose[:, i])
+              and torch.equal(torch.stack(na_), fo.n_active[:, i]),
+              f"fleet robot {i}: poses or n_active differ from the solo "
+              f"session's")
+        check(torch.equal(c_.filt.P, carry.filt.P[i])
+              and torch.equal(c_.filt.x, carry.filt.x[i]),
+              f"fleet robot {i}: P or x differ from the solo session's")
+        del s_, c_
+        torch.cuda.empty_cache()
+
+    def more_ticks():
+        c_ = carry
+        for t in range(T, T + TP_):
+            c_, _ = fleet.step(c_, odom[t], ranges[t], beams)
+    # the carry is done with after the merge's maps; profile after them
+    maps = [robot_map_from_carry(tree_map(lambda a, i=i: a[i], carry),
+                                 ranges[0, i], beams, np.zeros(3))
+            for i in range(N)]
+    prof12 = profile_device(torch, more_ticks, TP_, "fleet tick")[0]
+    fmed, smed = statistics.median(fticks), statistics.median(solo_ticks)
+    log(f"phase 12a fleet ok: {N} robots of the tuned session (capacity "
+        f"{ep.capacity}, P {tuple(carry.filt.P.shape)} bf16 stacked, "
+        f"{size['beams']} beams, examples/fleet_mapping.py's circles), {T} "
+        f"fleet ticks; each robot's poses, n_active, x and P bit-equal to "
+        f"a solo SlamSession of seed 100 + i on the card; launches "
+        f"{launches12a} ({want_tick['syrk_downdate']} K1 and "
+        f"{want_tick['wall_search']} wall_search every fleet tick, no other"
+        f"); {len(syncs)} host syncs in the run; bytes copied back into the "
+        f"stacked carry a fleet tick: median {statistics.median(copied):.0f},"
+        f" max {max(copied)} (a robot's P is {p_bytes}); ATE per robot "
+        f"{[round(a, 4) for a in ates]} m; n_active "
+        f"{fo.n_active[-1].tolist()}; fleet tick median {fmed:.3f} ms "
+        f"(CUDA events; wall {wall:.3f} ms), solo tick median {smed:.3f} "
+        f"ms over the four solo runs ({fmed / smed:.2f}×), phase 6's tick "
+        + (f"median {tick6_ms:.3f} ms ({fmed / tick6_ms:.2f}×)"
+           if tick6_ms is not None else "not run in this call")
+        + f"; card: {card}")
+    log(f"phase 12a profile: {prof12}")
+
+    # -- 12b. the fleet map merge ---------------------------------------------
+    # examples/fleet_mapping.py's merge: every robot's map from its slice of
+    # the fleet carry and its first scan, deployment guesses at the origin,
+    # gates 60 inliers and 0.25 m RMS; on the card in f32 (the scans'
+    # dtype), against the same maps merged on the CPU in f64 and f32
+    kw_m = dict(icp_min_inliers=60, icp_max_rmse=0.25)
+    merge_s = []
+    for _ in range(2):
+        m0 = time.perf_counter()
+        res = merge_maps(maps, device=dev, **kw_m)
+        torch.cuda.synchronize()
+        merge_s.append(time.perf_counter() - m0)
+    ref64 = merge_maps(maps, dtype=torch.float64, device="cpu", **kw_m)
+    ref32 = merge_maps(maps, dtype=torch.float32, device="cpu", **kw_m)
+
+    def gaps(a, b):
+        if a.landmarks.shape != b.landmarks.shape:
+            lm = float("inf")
+        else:
+            lm = float(np.abs(a.landmarks - b.landmarks).max(initial=0.0))
+        return (float(np.abs(a.anchors[:, :2] - b.anchors[:, :2]).max()),
+                float(angle_gap(a.anchors[:, 2], b.anchors[:, 2]).max()), lm)
+    g_card, g_32 = gaps(res, ref64), gaps(ref32, ref64)
+    check(res.graph.nodes.dtype == torch.float32
+          and res.graph.nodes.device.type == torch.device(dev).type,
+          f"merge ran in {res.graph.nodes.dtype} on {res.graph.nodes.device}")
+    check(res.n_icp_edges == ref64.n_icp_edges
+          and res.landmarks.shape == ref64.landmarks.shape
+          and res.n_before_merge == ref64.n_before_merge,
+          f"merge: card {res.n_icp_edges} scan-match edges, "
+          f"{res.landmarks.shape[0]} of {res.n_before_merge} landmarks; CPU "
+          f"f64 {ref64.n_icp_edges}, {ref64.landmarks.shape[0]} of "
+          f"{ref64.n_before_merge}")
+    check(g_card[0] <= MERGE_TOL_M and g_card[1] <= MERGE_TOL_DEG
+          and g_card[2] <= MERGE_TOL_M,
+          f"merge: card against CPU f64 anchors {g_card[0]:.3e} m, "
+          f"{g_card[1]:.3e}°, landmarks {g_card[2]:.3e} m, over the "
+          f"tolerance ({MERGE_TOL_M} m, {MERGE_TOL_DEG}°)")
+    log(f"phase 12b merge ok: {N} robot maps, {res.n_icp_edges} scan-match "
+        f"edges (CPU f64: {ref64.n_icp_edges}), {res.landmarks.shape[0]} "
+        f"merged landmarks of {res.n_before_merge}; card (f32, ICP and the "
+        f"device Gauss-Newton) against the CPU's f64 merge of the same "
+        f"maps: anchors {g_card[0]:.3e} m and {g_card[1]:.3e}°, landmarks "
+        f"{g_card[2]:.3e} m (tolerance {MERGE_TOL_M} m, {MERGE_TOL_DEG}°; the "
+        f"CPU's own f32 merge: {g_32[0]:.3e} m, {g_32[1]:.3e}°, "
+        f"{g_32[2]:.3e} m); anchors {np.round(res.anchors, 4).tolist()}; "
+        f"merge {merge_s[0]:.3f} s first call, {merge_s[1]:.3f} s second "
+        f"(host clock, synchronised); card: {card}")
+    del fleet, carry, outs, fo, maps, trajs, odom, ranges
+    torch.cuda.empty_cache()
+
+    # -- 12c. the large-world submap pipeline -----------------------------------
+    # experiments/chip_r5_world.py:179-216 on phase 10's route: floorplan
+    # 16 × 16, 1024 beams, heading noise 0.5°; campaign_params(192, f32,
+    # 'fused', 0.5) with a 512-entry table, in 400-tick submaps with a
+    # keyframe scan every 40 ticks; the one cut: the first 1,600 ticks
+    worldc, ctrlc, startc = campaign_route(16, size["route_max"])
+    worldc = W.World(worldc.segments.to(dev, torch.float32))
+    cfgc = tp.SimConfig(n_beams=size["beams"], max_range=10.0,
+                        range_noise_std=0.01, odom_xy_noise_std=0.004,
+                        odom_theta_noise_std=0.5)
+    gc_ = torch.Generator(device=dev)
+    gc_.manual_seed(0)
+    trc = W.simulate(worldc, torch.tensor(ctrlc, dtype=torch.float32,
+                                          device=dev), cfgc, gc_,
+                     start_pose=tuple(startc))
+    epc, rpc = campaign_params(size["sub_capacity"], torch.float32, "fused",
+                               0.5)
+    rpc = dataclasses.replace(rpc, table_capacity=size["table"])
+    check((epc.pht_mode, epc.cov_dtype, epc.correction, epc.use_pallas,
+           rpc.n_hypotheses, rpc.wall_search_timeout)
+          == ("dense", None, "gemm", False, 192, 9),
+          f"submap configuration changed: {epc}, {rpc}")
+    skw = dict(control_source="fused", **CAMPAIGN_SESSION)
+    L = size["segment"]
+
+    # segment 0 against a plain session of the same configuration from
+    # the same initial carry (the submap's frame: no init_pose)
+    plain = tp.SlamSession(ekf_params=epc, ransac_params=rpc, seed=1,
+                           device=dev, **skw)
+    pc, po = plain.run(trc.odom[:L], trc.ranges[:L], trc.beam_angles)
+    torch.cuda.synchronize()
+
+    def pipeline(Tn):
+        sm = SubmapSlam(ekf_params=epc, ransac_params=rpc, seed=1,
+                        ticks_per_submap=L, kf_every=40, session_kwargs=skw,
+                        start_pose=startc, device=dev)
+        sm.session.step, recs = tick_census(torch, sm.session.step)
+        zero()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                r0 = time.perf_counter()
+                pre = sm.run(trc.odom[:Tn], trc.ranges[:Tn],
+                             trc.beam_angles)
+                run_s = time.perf_counter() - r0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        del sm.session.step                  # the class's own again
+        launches = read()
+        # the closures a run of the first route_first ticks accepts: the
+        # detector over this run's first submaps, which are that run's
+        # (each segment starts from a fresh carry), on a shallow copy
+        k = size["route_first"] // L
+        first = copy.copy(sm)
+        first.submaps, first._segment_local = (sm.submaps[:k],
+                                               sm._segment_local[:k])
+        n_first = first.detect_loop_closures_traj(
+            trc.ranges[:k * L], trc.beam_angles, **lc_kw)
+        d0 = time.perf_counter()
+        n_lc = sm.detect_loop_closures_traj(trc.ranges[:Tn],
+                                            trc.beam_angles, **lc_kw)
+        det_s = time.perf_counter() - d0
+        return dict(sm=sm, pre=pre, recs=recs, boundary=syncs_of(caught),
+                    launches=launches, n_lc=n_lc, run_s=run_s, det_s=det_s,
+                    first=(k * L, n_first))
+
+    lc_kw = dict(radius=10.0, min_separation=1, icp_max_rmse=0.16,
+                 icp_min_inliers=120, max_per_pair=2, max_corr_xy=3.0,
+                 max_corr_deg=5.0)
+    Tc = size["route_ticks"]
+    got = pipeline(Tc)
+    tried = [got["first"], (Tc, got["n_lc"])]
+    while got["n_lc"] == 0 and Tc + L <= size["route_max"]:
+        Tc += L
+        del got
+        torch.cuda.empty_cache()
+        got = pipeline(Tc)
+        tried.append((Tc, got["n_lc"]))
+    sm = got["sm"]
+    check(got["n_lc"] >= 1, f"submaps: no loop closure accepted in "
+          f"{tried} (ticks, closures)")
+    check(got["launches"] == only(wall_search=Tc),
+          f"submaps: launches {got['launches']}, expected {Tc} wall_search "
+          f"and no other")
+    tick_syncs = [r[2] for r in got["recs"]]
+    check(len(tick_syncs) == Tc and all(
+        len(s_) == 1 and "models/maintenance.py" in s_[0]
+        for s_ in tick_syncs),
+          f"submaps: the ticks' host syncs are not maintenance's one a tick: "
+          f"{[s_ for s_ in tick_syncs if len(s_) != 1][:3]}")
+    n_seg = len(sm.submaps)
+    check(n_seg == Tc // L, f"submaps: {n_seg} submaps in {Tc} ticks")
+    check(np.array_equal(sm._segment_local[0],
+                         po.pose.cpu().numpy())
+          and torch.equal(sm.submaps[0].carry.filt.P, pc.filt.P)
+          and torch.equal(sm.submaps[0].carry.filt.x, pc.filt.x),
+          "submaps: segment 0 differs from a plain session over its ticks")
+    snap = sm.session._snap
+    check(all(s_.carry.filt.P.untyped_storage().data_ptr()
+              != snap.untyped_storage().data_ptr() for s_ in sm.submaps)
+          and len({s_.carry.filt.P.untyped_storage().data_ptr()
+                   for s_ in sm.submaps}) == n_seg,
+          "submaps: a frozen P shares storage with another or with the "
+          "guard's snapshot")
+    o0 = time.perf_counter()
+    opt_ok = sm.optimize(iters=30)
+    opt_s = time.perf_counter() - o0
+    check(opt_ok, "submaps: optimize returned False (non-finite nodes)")
+    post = sm.global_poses()
+    lmg = sm.global_landmarks()
+    check(np.isfinite(post).all() and np.isfinite(lmg).all()
+          and lmg.shape[0] > 0, "submaps: global poses or landmarks not "
+          "finite, or no landmark")
+    truth = trc.truth[:Tc].double().cpu().numpy()
+
+    def ate(est):
+        Rg, tg = W.align_se2(est[:, :2], truth[:, :2])
+        al = est[:, :2] @ Rg.T + tg
+        return (float(np.sqrt(np.mean(np.sum((al - truth[:, :2]) ** 2, -1)))),
+                float(np.sqrt(np.mean(np.sum((est[:, :2] - truth[:, :2]) ** 2,
+                                             -1)))))
+    ate_pre, ate_post = ate(got["pre"]), ate(post)
+    gt = W.cluster_feet(W.true_feet(worldc), 0.5)
+    acc = W.map_accuracy(lmg, gt, tol=0.6)
+    acc_lines = W.map_accuracy_lines(W.cluster_feet(lmg, 0.5), worldc,
+                                     tol=0.5)
+    tick_ms = [r[0].elapsed_time(r[1]) for r in got["recs"]]
+    bsync = got["boundary"]
+    log(f"phase 12c submap pipeline ok: the campaign route's first {Tc} "
+        f"ticks ((ticks, closures accepted): {tried}; the full route is "
+        f"8,247) "
+        f"in {n_seg} submaps of {L} ticks, capacity {epc.capacity} f32 dense"
+        f" (P [{sm.submaps[0].carry.filt.P.shape[0]}²]), NH = 192, a "
+        f"{rpc.table_capacity}-entry table, fused control, guard 0.5 m, "
+        f"maintenance at 0.4 m; segment 0 bit-equal to a plain session over"
+        f" its {L} ticks (poses, x, P); launches {got['launches']}; host "
+        f"syncs: exactly one a tick (models/maintenance.py), and "
+        f"{len(bsync)} outside the ticks ({len(bsync) / n_seg:.1f} a "
+        f"segment boundary, at {sorted(set(bsync))[:6]}); {got['n_lc']} "
+        f"loop closures accepted ({sm.graph.n_edges} edges, "
+        f"{sm.graph.n_nodes} nodes), optimize True; aligned ATE "
+        f"{ate_pre[0]:.4f} m before optimisation, {ate_post[0]:.4f} after "
+        f"(world frame {ate_pre[1]:.4f}, {ate_post[1]:.4f}); "
+        f"{lmg.shape[0]} global landmarks, map_accuracy against "
+        f"cluster_feet(true_feet(world), 0.5) at 0.6 m {acc} (the submaps' "
+        f"feet are taken from each submap's origin, so chip_r5_world.py "
+        f"scores them against the wall lines: map_accuracy_lines {acc_lines}"
+        f"); segment tick median {statistics.median(tick_ms):.3f} ms (CUDA "
+        f"events around each step), run {got['run_s']:.3f} s, closure "
+        f"detection {got['det_s']:.3f} s, optimize {opt_s:.4f} s (host f64); "
+        f"card: {card}")
+    launches12c = got["launches"]
+    del got, sm, plain, pc, po
+    torch.cuda.empty_cache()
+
+    # -- 12d. concurrent submaps -------------------------------------------------
+    # ParallelSubmapSlam(n_submaps=4) at 12c's filter and extractor (the
+    # fleet takes no session options: odometry control, no maintenance)
+    # on the route's first 256 ticks, against SubmapSlam in 64-tick
+    # segments given the same draws a tick
+    Tp = size["parallel_ticks"]
+    gd = torch.Generator(device=dev)
+    gd.manual_seed(12)
+    draws = [(torch.rand((rpc.n_hypotheses, size["beams"]), generator=gd,
+                         device=dev),
+              torch.rand((rpc.n_hypotheses, size["beams"]), generator=gd,
+                         device=dev)) for _ in range(Tp)]
+    ps = ParallelSubmapSlam(ekf_params=epc, ransac_params=rpc, seed=1,
+                            n_submaps=4, start_pose=startc, device=dev)
+    zero()
+    q0 = time.perf_counter()
+    pp = ps.run(trc.odom[:Tp], trc.ranges[:Tp], trc.beam_angles, draws=draws)
+    par_s = time.perf_counter() - q0
+    launches12d = read()
+    ser = SubmapSlam(ekf_params=epc, ransac_params=rpc, seed=1,
+                     ticks_per_submap=Tp // 4, start_pose=startc,
+                     device=dev)
+    q0 = time.perf_counter()
+    sp = ser.run(trc.odom[:Tp], trc.ranges[:Tp], trc.beam_angles,
+                 draws=draws)
+    ser_s = time.perf_counter() - q0
+    check(launches12d == only(wall_search=Tp),
+          f"concurrent submaps: launches {launches12d}")
+    check(len(ps.submaps) == 4 and ps.graph.n_nodes == 5,
+          f"concurrent submaps: {len(ps.submaps)} submaps, "
+          f"{ps.graph.n_nodes} nodes")
+    check(np.array_equal(pp, sp) and all(
+        torch.equal(a.carry.filt.x, b.carry.filt.x)
+        and torch.equal(a.carry.filt.P, b.carry.filt.P)
+        for a, b in zip(ps.submaps, ser.submaps)),
+          "concurrent submaps: a segment differs from SubmapSlam's")
+    try:
+        ps.run(trc.odom[:Tp - 1], trc.ranges[:Tp - 1], trc.beam_angles)
+        ragged = "no error"
+    except ValueError as e_:
+        ragged = f"ValueError ({e_})"
+    check(ragged.startswith("ValueError"), f"ragged T: {ragged}")
+    log(f"phase 12d concurrent submaps ok: {Tp} ticks in 4 segments as one "
+        f"fleet of 4 ({Tp // 4} fleet ticks), each segment's poses, x and P "
+        f"bit-equal to SubmapSlam(ticks_per_submap={Tp // 4})'s given the "
+        f"same draws; 4 submaps, 5 graph nodes; launches {launches12d}; "
+        f"ragged T: {ragged}; wall {par_s:.3f} s concurrent, {ser_s:.3f} s "
+        f"serial (host clock); card: {card}")
+    del ps, ser, draws, trc
+    torch.cuda.empty_cache()
+    return dict(fleet=launches12a, submaps=launches12c, parallel=launches12d)
 
 
 def main():
@@ -653,6 +1180,17 @@ def main():
     card = gpu_name_and_limit()
     log(f"phase 1 build ok: {build_s:.2f} s (build dir {K.BUILD_DIR}); "
         f"card: {card}")
+    # every kernel's launch counter, set to 0 before a path's run
+    counted = {"syrk_downdate": K.syrk_downdate,
+               "gate_costs": G.gate_costs_state,
+               "score_lines": K.score_lines, "wall_search": K.wall_search,
+               "cov_update": K.cov_update, "pair_gather": K.pair_gather,
+               "syrk_gram": K.syrk_gram}
+    if "--phase12-only" in sys.argv[1:]:
+        # a development run of phase 12 alone: no result line
+        fleet_and_submaps(torch, tp, W, counted, dev, card, None, PHASE12)
+        log("chip_smoke: phase 12 only (--phase12-only): no result line")
+        return 0
     mma = sass_mma_counts(K.library_path("syrk_downdate"))
     mma_bf16 = {k: v for k, v in mma.items()
                 if "syrk_downdate_kernel_bf16" in k}
@@ -954,11 +1492,6 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 5. the session, card against CPU ---------------------------------------
-    counted = {"syrk_downdate": K.syrk_downdate,
-               "gate_costs": G.gate_costs_state,
-               "score_lines": K.score_lines, "wall_search": K.wall_search,
-               "cov_update": K.cov_update, "pair_gather": K.pair_gather,
-               "syrk_gram": K.syrk_gram}
     SR_PATH = dict(update_mode="srekf_fast", rows_gather="pallas")
     for path, kw, ours, T4 in (
             ("tuned", dict(pht_mode="rows", correction="syrk"),
@@ -1254,6 +1787,7 @@ def main():
         f"one launch, {OPS_BEFORE_WALL_SEARCH['tuned']} with its rounds as "
         f"torch ops around 1 + T score_lines launches (PERF.md §5)")
     launches6 = launches
+    tick6_ms = run6["tick_median"]      # beside the fleet's tick (12a)
     P6 = filt.P                         # the tuned path's P, for phase 8
     del run6, filt
     torch.cuda.empty_cache()
@@ -1293,8 +1827,7 @@ def main():
             torch.cuda.set_sync_debug_mode(0)
         launches6c = {name: fn.launches for name, fn in counted.items()}
         k1_6c_launches += launches6c["syrk_downdate"]
-        syncs6c = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
-                   for w in caught if "synchroniz" in str(w.message)]
+        syncs6c = syncs_of(caught)
         torch.cuda.synchronize()
         check(launches6c == want6c, f"batch {b} launched {launches6c}, "
               f"expected {want6c}")
@@ -1470,8 +2003,7 @@ def main():
                 carry9, o = sess9.step(carry9, traj.odom[t], traj.ranges[t],
                                        traj.beam_angles)
                 ev[t][1].record()
-            syncs9.append([f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
-                           for w in caught if "synchroniz" in str(w.message)])
+            syncs9.append(syncs_of(caught))
             outs9.append(o)
             if t == rec:    # between two ticks' windows: the new factor
                 S9 = carry9.filt.P          # (later ticks update it in place)
@@ -1892,8 +2424,7 @@ def main():
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        syncs9b += [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
-                    for w in caught if "synchroniz" in str(w.message)]
+        syncs9b += syncs_of(caught)
         check(bool(torch.isfinite(st_r.P).all())
               and bool(torch.isfinite(st_r.x).all()),
               f"phase 9b repetition {r}: state not finite")
@@ -2018,8 +2549,7 @@ def main():
             warm, _ = sess10.step(warm, traj10.odom[t], traj10.ranges[t],
                                   traj10.beam_angles)
     torch.cuda.set_sync_debug_mode(0)
-    syncs10 = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
-               for w in caught if "synchroniz" in str(w.message)]
+    syncs10 = syncs_of(caught)
     del warm, sess10
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2177,7 +2707,8 @@ def main():
     torch.cuda.empty_cache()
     # what each feature costs a tick: the first T10W ticks through fresh
     # sessions with every feature on, the guard off, maintenance off and
-    # odometry control, in turns (A B C D D C B A, twice), since the
+    # odometry control, in turns (A B C D D C B A; once, to leave time
+    # for phase 12), since the
     # host-bound tick moves between runs; per run the median of ticks 8
     # on, per variant the median of its runs.  A cost is resolved only
     # where every run without the feature is faster than every run with
@@ -2188,7 +2719,7 @@ def main():
         ("maintenance off", ep10, dict(maintain_merge_radius=0.0)),
         ("odometry control", ep10, dict(control_source="odometry")))
     cost10 = {label: [] for label, _, _ in variants10}
-    for label, ep_, kw_ in 2 * (variants10 + variants10[::-1]):
+    for label, ep_, kw_ in variants10 + variants10[::-1]:
         s_, c_, o_, tk_ = campaign_run(ep_, T10W, **kw_)
         cost10[label].append(statistics.median(tk_[8:]))
         del s_, c_, o_
@@ -2197,8 +2728,8 @@ def main():
     base10 = med_cost["all on"]
     feats10 = {"the guard": "guard off", "maintenance": "maintenance off",
                "ICP (fused against odometry control)": "odometry control"}
-    log(f"phase 10 feature cost: median tick of ticks 8-{T10W - 1}, four "
-        f"runs each in turns (A B C D D C B A, twice): "
+    log(f"phase 10 feature cost: median tick of ticks 8-{T10W - 1}, two "
+        f"runs each in turns (A B C D D C B A): "
         + "; ".join(f"{k} {[round(x, 3) for x in v]} ms (median "
                     f"{med_cost[k]:.3f})" for k, v in cost10.items())
         + "; so " + ", ".join(
@@ -2610,11 +3141,21 @@ def main():
     del st_, got_, got11, got_py, got_nat, off11
     torch.cuda.empty_cache()
 
+    # -- 12. the submap and fleet layer --------------------------------------
+    launches12 = fleet_and_submaps(torch, tp, W, counted, dev, card,
+                                   tick6_ms, PHASE12)
+
     kernels["syrk_downdate"]["campaign_launches"] = launches10["syrk_downdate"]
     kernels["wall_search"]["campaign_launches"] = launches10["wall_search"]
     kernels["syrk_gram"]["eviction_launches"] = launches10b["syrk_gram"]
     kernels["syrk_downdate"]["stream_launches"] = launches11["syrk_downdate"]
     kernels["wall_search"]["stream_launches"] = launches11["wall_search"]
+    kernels["syrk_downdate"]["fleet_launches"] = (
+        launches12["fleet"]["syrk_downdate"])
+    kernels["wall_search"]["fleet_launches"] = launches12["fleet"]["wall_search"]
+    kernels["wall_search"]["submap_launches"] = (
+        launches12["submaps"]["wall_search"]
+        + launches12["parallel"]["wall_search"])
 
     print(json.dumps({"kernels": [dict(name=n, **k)
                                   for n, k in kernels.items()]}))

@@ -33,10 +33,11 @@ sync-debug mode.
 The covariance is updated in place, as the JAX session's donated carry
 is (session.py:134-143): ``step`` consumes the carry it is given; keep
 only the returned one.  The extractor's random draws come from the
-session's ``torch.Generator`` on its device unless ``step``/``run`` are
-given explicit draws ``(u, s)`` — the JAX package draws them from
-threefry, which torch cannot reproduce, so parity runs hand the JAX
-draws in.
+session's ``torch.Generator`` on its device, reseeded with ``seed`` by
+every ``init_carry`` (as every JAX carry starts from ``PRNGKey(seed)``),
+unless ``step``/``run`` are given explicit draws ``(u, s)`` — the JAX
+package draws them from threefry, which torch cannot reproduce, so
+parity runs hand the JAX draws in.
 
 Under 'srekf_fast' the recompression schedule is kept on the host: the
 carry's ``sr_tick`` is a Python int, so the tick that recompresses and
@@ -195,8 +196,11 @@ class SlamSession:
         control_source 'icp' or 'fused' the carry holds an empty previous
         scan of ``n_beams`` beams (so the first tick's ICP finds no pair
         and its u is 0) and a zero previous control; without ``n_beams``
-        that raises, as in JAX (session.py:225-234)."""
+        that raises, as in JAX (session.py:225-234).  Every carry restarts
+        the extractor's draws: the generator is reseeded with ``seed``, as
+        the JAX carry's key is ``PRNGKey(seed)`` (session.py:239)."""
         ep = self.ekf_params
+        self.generator.manual_seed(self.seed)
         sr_tick = None
         if ep.update_mode == "srekf_fast":
             filt = factor_from_state(init_state(

@@ -3,8 +3,10 @@ K3 score_lines and the one-launch wall search, K4 cov_update, K5
 pair_gather, K6 syrk_gram), held against their plain versions; the
 blocked Cholesky's NaN on failure without a host sync; the square-root recompression's QR branch; the
 tuned, kernel-path and square-root sessions on the card against the
-CPU; and the live operating path: the streaming session against the
-offline run on the card, and filter_health without a host sync.
+CPU; the live operating path: the streaming session against the
+offline run on the card, and filter_health without a host sync; and the
+fleet against solo sessions on the card, and a frozen submap's P owning
+its storage.
 
 Marked ``cuda``: each test skips, with its reason, where torch sees no
 CUDA device, as on a CPU-only machine.  On a GPU machine (which need not
@@ -753,3 +755,77 @@ def test_filter_health_on_card_does_not_sync(dev):
     for f in ("asym", "trace"):
         a, b = getattr(h, f).float().item(), getattr(want, f).float().item()
         assert abs(a - b) <= 2.0 ** -7 * max(abs(b), 1e-30), f
+
+
+def _fleet_inputs(N, T, B, dev):
+    """N robots' streams (examples/fleet_mapping.py's circles, simulated on
+    the CPU from seeds 0..N-1), stacked [T,N,...] on the card."""
+    from ekf_slam_tpu_torch.config import SimConfig
+    from ekf_slam_tpu_torch.sim import world as W
+    trajs = [W.simulate(W.rectangle_room(4.0, 3.0, device="cpu"),
+                        W.circle_controls(T, 0.04 + 0.01 * i, 2.0 + i,
+                                          device="cpu"),
+                        SimConfig(n_beams=B, max_range=12.0),
+                        torch.Generator().manual_seed(i))
+             for i in range(N)]
+    return (torch.stack([t.odom for t in trajs], 1).to(dev),
+            torch.stack([t.ranges for t in trajs], 1).to(dev),
+            trajs[0].beam_angles.to(dev))
+
+
+def test_fleet_on_card_matches_solo_sessions(dev):
+    """A fleet of three at small capacity on the card (rows + SYRK, bf16
+    P) equals solo sessions of seeds seed + i bit for bit (poses, n_active,
+    P), launches one SYRK and one wall_search per robot a fleet tick, and
+    never copies P back into its slice."""
+    from ekf_slam_tpu_torch import EKFParams, RansacParams, SlamSession
+    from ekf_slam_tpu_torch.parallel.multi import FleetSlamSession
+    ep = EKFParams(capacity=64, max_obs=8, ref_compat=False,
+                   update_mode="batched", pht_mode="rows", correction="syrk",
+                   cov_dtype=torch.bfloat16)
+    rp = RansacParams(line_consensus=30, bearing_window_deg=15.0,
+                      wall_search_timeout=4, table_capacity=64,
+                      promote_count=5, ref_compat=False, n_hypotheses=32)
+    N, T = 3, 16
+    odom, ranges, beams = _fleet_inputs(N, T, 512, dev)
+    fleet = FleetSlamSession(n_sessions=N, ekf_params=ep, ransac_params=rp,
+                             seed=100)
+    K.syrk_downdate.launches = K.wall_search.launches = 0
+    carry, out = fleet.run(odom, ranges, beams)
+    assert (K.syrk_downdate.launches, K.wall_search.launches) == (N * T,
+                                                                  N * T)
+    P0 = carry.filt.P[0]
+    assert fleet.copied_bytes < P0.numel() * P0.element_size()
+    for i in range(N):
+        c_, o_ = SlamSession(ekf_params=ep, ransac_params=rp,
+                             seed=100 + i).run(odom[:, i], ranges[:, i],
+                                               beams)
+        assert torch.equal(out.pose[:, i], o_.pose)
+        assert torch.equal(out.n_active[:, i], o_.n_active)
+        assert torch.equal(carry.filt.P[i], c_.filt.P)
+    assert int(out.n_active[-1].min()) > 0
+
+
+def test_frozen_submap_on_card_does_not_alias_the_next_segment(dev):
+    """SubmapSlam on the card with the fault guard on: every frozen
+    submap's P has storage of its own (not the next segment's P, not the
+    guard's snapshot), and stays as it was while later segments run."""
+    from ekf_slam_tpu_torch import EKFParams, RansacParams
+    from ekf_slam_tpu_torch.parallel.submaps import SubmapSlam
+    ep = EKFParams(capacity=64, max_obs=8, ref_compat=False,
+                   update_mode="batched", guard_max_jump=1.0)
+    rp = RansacParams(line_consensus=30, bearing_window_deg=15.0,
+                      wall_search_timeout=4, table_capacity=64,
+                      promote_count=5, ref_compat=False, n_hypotheses=32)
+    odom, ranges, beams = _fleet_inputs(1, 60, 512, dev)
+    sm = SubmapSlam(ekf_params=ep, ransac_params=rp, seed=2,
+                    ticks_per_submap=20)
+    sm.run(odom[:, 0], ranges[:, 0], beams)
+    frozen = [s.carry.filt.P.clone() for s in sm.submaps]
+    sm.run(odom[:40, 0], ranges[:40, 0], beams)
+    ptrs = [s.carry.filt.P.untyped_storage().data_ptr() for s in sm.submaps]
+    assert len(sm.submaps) == 5 and len(set(ptrs)) == 5
+    assert sm.session._snap.untyped_storage().data_ptr() not in ptrs
+    for s, want in zip(sm.submaps[:3], frozen):
+        assert torch.equal(s.carry.filt.P, want)
+    assert all(s.n_landmarks > 0 for s in sm.submaps)

@@ -35,7 +35,8 @@ from ekf_slam_tpu_torch import config as tc
 from ekf_slam_tpu_torch import convert
 from ekf_slam_tpu_torch.sim import world as tw
 
-from torch_parity_helpers import find_walls_draws, max_rel, n, port, t
+from torch_parity_helpers import (find_walls_draws, max_rel, n, port,
+                                  session_draws, t)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -168,6 +169,24 @@ def test_session_default_draws_are_seeded():
             for _ in range(2)]
     (c1, o1), (c2, o2) = runs
     assert torch.equal(o1.pose, o2.pose) and torch.equal(c1.filt.P, c2.filt.P)
+    assert int(o1.n_active[-1]) > 0
+
+
+def test_init_carry_reseeds_the_generator():
+    """Every init_carry restarts the extractor's draws from ``seed``, as
+    every JAX carry starts from PRNGKey(seed) (session.py:239): two runs of
+    one session without draws, each making its own carry, are bit-equal."""
+    cfg = tc.SimConfig(n_beams=B, max_range=12.0, dtype=torch.float64)
+    g = torch.Generator().manual_seed(0)
+    tr = tw.simulate(tw.rectangle_room(4.0, 3.0, torch.float64, "cpu"),
+                     tw.circle_controls(6, 0.05, 3.0, torch.float64, "cpu"),
+                     cfg, g)
+    ep, rp = (port(p) for p in _params(jnp.float64))
+    s = TSession(ekf_params=ep, ransac_params=rp, seed=3, device="cpu")
+    c1, o1 = s.run(tr.odom, tr.ranges, tr.beam_angles)
+    c2, o2 = s.run(tr.odom, tr.ranges, tr.beam_angles)
+    assert torch.equal(o1.pose, o2.pose) and torch.equal(c1.filt.P, c2.filt.P)
+    assert torch.equal(o1.obs.valid, o2.obs.valid)
     assert int(o1.n_active[-1]) > 0
 
 
@@ -564,22 +583,6 @@ def _record_jax(monkeypatch):
     return rec
 
 
-def _draws_for(rp, seed, ticks, beams):
-    """The JAX session's extractor draws for ``rp``: (u, s) [NH, B] a
-    tick for the batched search, [rounds, B] for the one-seed search."""
-    key, out = jax.random.PRNGKey(seed), []
-    for _ in range(ticks):
-        key, sub = jax.random.split(key)
-        if rp.n_hypotheses:
-            k_pick, k_sample = jax.random.split(sub)
-            shape = (rp.n_hypotheses, beams)
-            out.append((t(jax.random.uniform(k_pick, shape)),
-                        t(jax.random.uniform(k_sample, shape))))
-        else:
-            out.append(find_walls_draws(sub, rp.wall_search_timeout, beams))
-    return out
-
-
 def _run_recorded(monkeypatch, traj, ranges, ep, rp, init_pose=None,
                   **skw):
     """The JAX session (decisions recorded) and the port's, from the same
@@ -600,7 +603,7 @@ def _run_recorded(monkeypatch, traj, ranges, ep, rp, init_pose=None,
     tc0 = convert.carry_from_numpy(jax.tree.map(np.asarray, c0),
                                    device="cpu")
     tcarry, to = ts.run(np.array(traj.odom), ranges, t(traj.beam_angles),
-                        carry=tc0, draws=_draws_for(rp, SEED, Tn, nb))
+                        carry=tc0, draws=session_draws(rp, SEED, Tn, nb))
     return (jcarry, jo, rec), (tcarry, to)
 
 
@@ -733,7 +736,7 @@ def test_guarded_session_leaves_rejected_ticks_bit_for_bit(traj_ctl,
         return out
     monkeypatch.setattr(tsess, name, spy)
     ts = TSession(ekf_params=ep, ransac_params=rp, seed=SEED, device="cpu")
-    draws = _draws_for(_params(jnp.float64)[1], SEED, T_CTL, B)
+    draws = session_draws(_params(jnp.float64)[1], SEED, T_CTL, B)
     carry = ts.init_carry(first_odom=np.array(traj_ctl.odom[0]))
     verdicts = []
     for k in range(T_CTL):
@@ -853,6 +856,6 @@ def test_carry_from_numpy_icp_carry(traj_ctl):
     tnext, to = ts.step(tcarry, np.array(traj_ctl.odom[4]),
                         np.array(traj_ctl.ranges[4]),
                         t(traj_ctl.beam_angles),
-                        draws=_draws_for(rp, SEED, 5, B)[4])
+                        draws=session_draws(rp, SEED, 5, B)[4])
     assert np.abs(n(to.pose) - n(jo.pose)).max() <= 1e-9
     assert np.abs(n(to.u) - n(jo.u)).max() <= 1e-9

@@ -97,3 +97,21 @@ def find_walls_draws(key, T: int, B: int):
         us.append(jax.random.uniform(k_pick, (B,)))
         ss.append(jax.random.uniform(k_sample, (B,)))
     return t(jnp.stack(us)), t(jnp.stack(ss))
+
+
+def session_draws(rp, seed: int, ticks: int, beams: int):
+    """The extractor draws of a JAX session's carry started from
+    ``PRNGKey(seed)``, a (u, s) pair a tick: [NH, B] each for the batched
+    search (``rp.n_hypotheses`` > 0), [rounds, B] each for the one-seed
+    search (session.py:320, then ransac.py's per-search split)."""
+    key, out = jax.random.PRNGKey(seed), []
+    for _ in range(ticks):
+        key, sub = jax.random.split(key)
+        if rp.n_hypotheses:
+            k_pick, k_sample = jax.random.split(sub)
+            shape = (rp.n_hypotheses, beams)
+            out.append((t(jax.random.uniform(k_pick, shape)),
+                        t(jax.random.uniform(k_sample, shape))))
+        else:
+            out.append(find_walls_draws(sub, rp.wall_search_timeout, beams))
+    return out
