@@ -33,9 +33,12 @@ ticks arrive: ``io.stream.StreamingSlamSession`` (windows of ticks,
 read back through one CUDA event a window), fed by ``push`` or by
 ``io.socket_feed.SocketScanSource`` over TCP, with the scan-log codec
 (``io.scanlog``), the odometry quaternions (``utils.quat``) and the
-filter-health metrics (``utils.metrics``).  The exports are the
-JAX package's but ``MeshConfig``, which comes with the distributed
-layers (ROADMAP §1 item 6).
+filter-health metrics (``utils.metrics``).  A session's carry and
+generator are checkpointed by ``utils.checkpointing`` (the stream's
+heartbeats too), and ``utils.recovery`` runs a session with checkpoints
+and resumes a killed one from the newest, bit for bit.  The exports
+are the JAX package's but ``MeshConfig``, which comes with the
+distributed layers (ROADMAP §1 item 6).
 """
 
 from . import config

@@ -22,11 +22,24 @@ before its results are read: about 2·W tick times.
 The session's tick consumes its carry (P is updated in place), so the
 stream keeps only the carry each ``step`` returns; the per-tick outputs
 it hands back are numpy arrays sliced from the window's host copy.
-Checkpoints of the live carry (the JAX stream's ``checkpoint_dir``) are
-not ported yet: they come with checkpoints and crash recovery.
+
+Heartbeat checkpoints (``checkpoint_dir``): every ``checkpoint_every``
+windows the carry and the session generator's state are saved, labelled
+``step_%08d`` with the number of ticks that carry has run
+(utils/checkpointing.py).  The carry is copied when its window is
+dispatched, after the window's steps and before the next window's: with
+``non_blocking=True`` into pinned host buffers, on the stream the steps
+run on, before the window's event is recorded.  The file is written when
+the window drains, after the event wait.  (The JAX stream saves the live
+carry when a window drains, labelled with the ticks drained; by then the
+carry may be up to ``max_pending`` windows newer than its label.)  The
+buffers are allocated once and reused only after their file is written;
+the write blocks ``poll`` for as long as it takes.  ``restore`` starts a
+fresh stream from a checkpoint.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
@@ -35,6 +48,7 @@ import numpy as np
 import torch
 
 from ..session import StepOutput, stack_outputs
+from ..utils import checkpointing as ckpt
 
 
 @dataclass
@@ -82,9 +96,9 @@ class StreamingSlamSession:
     ``push(odom_pose, ranges)`` a tick as it arrives; completed per-tick
     outputs come back from ``push``/``poll``/``flush`` in arrival order.
     ``window`` ticks form one dispatch; up to ``max_pending`` windows are
-    in flight before the host waits (backpressure).  ``checkpoint_dir``
-    must be None (``checkpoint_every`` applies with it): checkpoints of
-    the live carry are not ported yet."""
+    in flight before the host waits (backpressure).  With
+    ``checkpoint_dir`` the carry is checkpointed every
+    ``checkpoint_every`` windows (the module docstring)."""
 
     def __init__(self, session, n_beams: int, beam_angles,
                  window: int = 8, max_pending: int = 2,
@@ -92,16 +106,15 @@ class StreamingSlamSession:
                  checkpoint_every: int = 8, first_odom=None):
         if window < 1:
             raise ValueError("window must be >= 1")
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "the stream's heartbeat checkpoints come with the next "
-                "slice of the port (checkpoints and crash recovery); pass "
-                "checkpoint_dir=None")
+        if checkpoint_dir is not None and checkpoint_every < 1:
+            raise ValueError("checkpoint_every must be >= 1")
         self.session = session
         self.window = window
         self.max_pending = max(1, max_pending)
         self._device = session.device
         self.beam_angles = torch.as_tensor(beam_angles, device=self._device)
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
         self.carry = session.init_carry(
             first_odom=first_odom,
             n_beams=(n_beams if session.control_source in ("icp", "fused")
@@ -112,9 +125,25 @@ class StreamingSlamSession:
         self._buf_arrival: List[float] = []
         # in-flight windows: (host outputs, event or None, arrival times)
         self._pending: List[Tuple[StepOutput, Any, List[float]]] = []
+        # the heartbeat of each in-flight window (None: none)
+        self._beats: List[Optional[Tuple[int, List[Any], Any]]] = []
+        # host buffer sets whose heartbeat has been written
+        self._free_bufs: List[List[Any]] = []
         # completed per-tick outputs not yet handed to the caller
         self._ready: List[StepOutput] = []
+        self._windows = 0         # windows dispatched
+        self._ticks = 0           # ticks the carry has run
         self.stats = StreamStats()
+
+    def restore(self, path: str) -> None:
+        """Continue from a checkpoint of this session's configuration (a
+        heartbeat ``step_%08d`` directory): its carry and generator state,
+        before the first push; later heartbeats count on from its tick."""
+        if self._ticks or self._buf_odom:
+            raise RuntimeError("restore a stream before its first push")
+        self.carry = ckpt.load_checkpoint(path, self.carry,
+                                          generator=self.session.generator)
+        self._ticks = ckpt.step_of(path)
 
     # -- feed ---------------------------------------------------------------
     def push(self, odom_pose, ranges, t_arrival: Optional[float] = None,
@@ -162,11 +191,44 @@ class StreamingSlamSession:
                                                 self.beam_angles,
                                                 draws=draws[i])
             outs.append(out)
+        self._windows += 1
+        self._ticks += len(arrivals)
+        beat = None
+        if (self.checkpoint_dir is not None
+                and self._windows % self.checkpoint_every == 0):
+            beat = self._heartbeat()
         host, event = self._to_host(stack_outputs(outs))
         self._pending.append((host, event, arrivals))
+        self._beats.append(beat)
         # backpressure: bound the windows in flight
         while len(self._pending) > self.max_pending:
             self._drain_one(block=True)
+
+    def _heartbeat(self) -> Tuple[int, List[Any], Any]:
+        """Enqueue the copy of the carry into a free set of host buffers
+        (pinned on CUDA, non-blocking; the window's event, recorded after,
+        marks it complete).  Returns (its tick, the host leaves, the
+        generator's state)."""
+        leaves = ckpt.carry_leaves(self.carry)
+        cuda = self._device.type == "cuda"
+        if self._free_bufs:
+            bufs = self._free_bufs.pop()
+        else:
+            bufs = [torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=cuda)
+                    if isinstance(leaf, torch.Tensor) else None
+                    for leaf in leaves]
+        host = [b.copy_(leaf, non_blocking=cuda) if b is not None else leaf
+                for b, leaf in zip(bufs, leaves)]
+        return self._ticks, host, self.session.generator.get_state()
+
+    def _write_heartbeat(self, beat: Tuple[int, List[Any], Any]) -> None:
+        """Write a drained window's heartbeat, and free its buffers."""
+        tick, host, state = beat
+        ckpt.write_checkpoint(
+            os.path.join(self.checkpoint_dir, f"step_{tick:08d}"), host,
+            state, self.session.generator.device.type)
+        self._free_bufs.append([h if isinstance(h, torch.Tensor) else None
+                                for h in host])
 
     def _to_host(self, outs: StepOutput) -> Tuple[StepOutput, Any]:
         """The window's outputs on the host and the event that marks
@@ -192,6 +254,9 @@ class StreamingSlamSession:
             event.synchronize()
         done = time.perf_counter()
         self._pending.pop(0)
+        beat = self._beats.pop(0)
+        if beat is not None:
+            self._write_heartbeat(beat)
         self.stats.t_last_done = done
         self.stats.n_ticks += len(arrivals)
         self.stats.latencies.extend(done - a for a in arrivals)

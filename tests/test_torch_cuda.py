@@ -6,7 +6,8 @@ tuned, kernel-path and square-root sessions on the card against the
 CPU; the live operating path: the streaming session against the
 offline run on the card, and filter_health without a host sync; and the
 fleet against solo sessions on the card, and a frozen submap's P owning
-its storage.
+its storage; checkpoints taken on the card, a kill and resume bit-equal
+to the uninterrupted run, and the stream's heartbeats.
 
 Marked ``cuda``: each test skips, with its reason, where torch sees no
 CUDA device, as on a CPU-only machine.  On a GPU machine (which need not
@@ -829,3 +830,110 @@ def test_frozen_submap_on_card_does_not_alias_the_next_segment(dev):
     for s, want in zip(sm.submaps[:3], frozen):
         assert torch.equal(s.carry.filt.P, want)
     assert all(s.n_landmarks > 0 for s in sm.submaps)
+
+
+def _recovery_session(seed=1):
+    """13a's configuration at capacity 256: rows + SYRK, bf16 P, the
+    64-hypothesis extractor (the session's generator draws)."""
+    from ekf_slam_tpu_torch import EKFParams, RansacParams, SlamSession
+    ep = EKFParams(capacity=256, max_obs=8, ref_compat=False,
+                   update_mode="batched", pht_mode="rows", correction="syrk",
+                   cov_dtype=torch.bfloat16)
+    rp = RansacParams(line_consensus=60, bearing_window_deg=15.0,
+                      wall_search_timeout=4, table_capacity=64,
+                      promote_count=5, ref_compat=False, n_hypotheses=64)
+    return SlamSession(ekf_params=ep, ransac_params=rp, seed=seed)
+
+
+def test_checkpoint_from_card_restores_onto_cpu(dev, tmp_path):
+    """A carry saved on the card loads onto a CPU template bit for bit
+    (no device identity in the file); the card generator's state cannot
+    restore a CPU generator: that raises ValueError."""
+    from ekf_slam_tpu_torch import SlamSession
+    from ekf_slam_tpu_torch.checks import session_inputs
+    from ekf_slam_tpu_torch.utils import checkpointing as ckpt
+    sess = _recovery_session()
+    odom, ranges, beams, _ = session_inputs(sess.ransac_params, 8, 1024)
+    carry, _ = sess.run(odom, ranges, beams)
+    path = ckpt.save_checkpoint(str(tmp_path), carry, step=8,
+                                generator=sess.generator)
+    cpu = SlamSession(ekf_params=sess.ekf_params,
+                      ransac_params=sess.ransac_params, seed=1, device="cpu")
+    tmpl = cpu.init_carry(first_odom=odom[0])
+    got = ckpt.load_checkpoint(path, tmpl)
+    for a, b in zip(ckpt.carry_leaves(got), ckpt.carry_leaves(carry)):
+        if isinstance(b, torch.Tensor):
+            assert a.device.type == "cpu" and torch.equal(a, b.cpu())
+        else:
+            assert a == b
+    with pytest.raises(ValueError, match="cuda generator"):
+        ckpt.load_checkpoint(path, tmpl, generator=cpu.generator)
+
+
+def test_crash_resume_on_card_is_bit_continuous(dev, tmp_path):
+    """13a at capacity 256: killed at tick 40 with checkpoints every 16,
+    resumed in a fresh session from 32, the end state, the generator and
+    the replayed poses bit-equal to an uninterrupted run on the card; one
+    SYRK and one wall_search launch a tick of the resume."""
+    from ekf_slam_tpu_torch.checks import session_inputs
+    from ekf_slam_tpu_torch.utils import checkpointing as ckpt
+    from ekf_slam_tpu_torch.utils import recovery
+    T = 64
+    odom, ranges, beams, _ = session_inputs(_recovery_session().ransac_params,
+                                            T, 1024)
+    with pytest.raises(recovery.HostCrash):
+        recovery.run_with_checkpoints(_recovery_session(), odom, ranges,
+                                      beams, str(tmp_path), every=16,
+                                      die_at_tick=40)
+    fresh = _recovery_session()
+    K.syrk_downdate.launches = K.wall_search.launches = 0
+    final, tail, start = recovery.resume_latest(fresh, odom, ranges, beams,
+                                                str(tmp_path), every=16)
+    assert start == 32
+    assert (K.syrk_downdate.launches, K.wall_search.launches) == (32, 32)
+    ref = _recovery_session()
+    want, out = ref.run(odom, ranges, beams)
+    for a, b in zip(ckpt.carry_leaves(final), ckpt.carry_leaves(want)):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert torch.equal(fresh.generator.get_state(), ref.generator.get_state())
+    assert torch.equal(tail, out.pose[32:])
+    assert int(want.filt.n_active) > 0
+
+
+def test_stream_heartbeat_on_card_holds_its_labelled_carry(dev, tmp_path):
+    """The stream on the card (window 8, two windows in flight, a
+    heartbeat every window, so pinned buffers are in use by up to three
+    unwritten heartbeats): each heartbeat equals the offline run's carry
+    after exactly its labelled tick, bit for bit."""
+    import os
+    from ekf_slam_tpu_torch.checks import session_inputs
+    from ekf_slam_tpu_torch.io.stream import StreamingSlamSession
+    from ekf_slam_tpu_torch.utils import checkpointing as ckpt
+    T = 40
+    odom, ranges, beams, _ = session_inputs(_recovery_session().ransac_params,
+                                            T, 1024)
+    stream = StreamingSlamSession(_recovery_session(), n_beams=1024,
+                                  beam_angles=beams, window=8, max_pending=2,
+                                  checkpoint_dir=str(tmp_path),
+                                  checkpoint_every=1,
+                                  first_odom=odom[0].numpy())
+    for i in range(T):
+        stream.push(odom[i].numpy(), ranges[i].numpy())
+    stream.flush()
+    assert sorted(os.listdir(tmp_path)) == [f"step_{k:08d}"
+                                            for k in range(8, T + 1, 8)]
+    sess = _recovery_session()
+    carry = sess.init_carry(first_odom=odom[0])
+    tmpl = _recovery_session()
+    for i in range(T):
+        carry, _ = sess.step(carry, odom[i], ranges[i], beams)
+        if (i + 1) % 8 == 0:
+            got = ckpt.load_checkpoint(
+                os.path.join(str(tmp_path), f"step_{i + 1:08d}"),
+                tmpl.init_carry(first_odom=odom[0]),
+                generator=tmpl.generator)
+            for a, b in zip(ckpt.carry_leaves(got),
+                            ckpt.carry_leaves(carry)):
+                assert (a is None and b is None) or torch.equal(a, b), i
+            assert torch.equal(tmpl.generator.get_state(),
+                               sess.generator.get_state())

@@ -8,7 +8,11 @@ tick overwrites).  Against the JAX stream (f64) the port is handed the
 JAX session's extractor draws through ``push(..., draws=)``; every
 decision is then equal and the pose within 1e-9.  The CUDA path's event
 wait is exercised with a stand-in event that is ready only when waited
-on, so backpressure must wait."""
+on, so backpressure must wait.  The heartbeat checkpoints hold the carry
+after exactly the ticks of their label, with windows still in flight at
+the drain, and a fresh stream restored from one continues the run."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +27,7 @@ from ekf_slam_tpu.sim import world as jw
 from ekf_slam_tpu_torch import SlamSession as TSession
 from ekf_slam_tpu_torch.io.stream import StreamingSlamSession as TStream
 from ekf_slam_tpu_torch.io.stream import StreamStats as TStats
+from ekf_slam_tpu_torch.utils import checkpointing as ckpt
 
 from torch_parity_helpers import port, t
 
@@ -237,15 +242,125 @@ def test_stream_rejects_bad_window(traj):
         TStream(_session(ep, rp), n_beams=B, beam_angles=traj[2], window=0)
 
 
-def test_stream_checkpoints_are_not_ported_yet(traj, tmp_path):
-    """A checkpoint directory raises, naming the slice that brings it; the
-    stream never runs without the checkpoints it was asked for."""
+def test_stream_heartbeat_checkpoints(traj, tmp_path):
+    """``checkpoint_every=2`` at window 8 over 48 ticks: heartbeats at
+    ticks 16, 32 and 48 (tests/test_stream.py:71); the newest restores
+    into a fresh session's template as the stream's final carry, with
+    the session generator's state."""
+    odom, ranges, beams = traj
     ep, rp = _params()
-    with pytest.raises(NotImplementedError, match="checkpoints and crash "
-                                                  "recovery"):
-        TStream(_session(ep, rp), n_beams=B, beam_angles=traj[2],
-                checkpoint_dir=str(tmp_path / "hb"))
-    assert not (tmp_path / "hb").exists()
+    cdir = str(tmp_path / "hb")
+    stream = TStream(_session(ep, rp), n_beams=B, beam_angles=beams,
+                     window=8, checkpoint_dir=cdir, checkpoint_every=2,
+                     first_odom=odom[0])
+    _push_all(stream, odom[:48], ranges[:48])
+    assert sorted(os.listdir(cdir)) == ["step_00000016", "step_00000032",
+                                        "step_00000048"]
+    latest = ckpt.latest_step_dir(cdir)
+    assert ckpt.step_of(latest) == 48
+    fresh = _session(ep, rp)
+    restored = ckpt.load_checkpoint(latest, fresh.init_carry(
+        first_odom=odom[0]), generator=fresh.generator)
+    for a, b in zip(ckpt.carry_leaves(restored),
+                    ckpt.carry_leaves(stream.carry)):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert torch.equal(fresh.generator.get_state(),
+                       stream.session.generator.get_state())
+    assert bool(torch.isfinite(restored.filt.P).all())
+
+
+def _offline_carries(ep, rp, odom, ranges, beams, ticks):
+    """The offline run's carry (cloned: the next tick updates P in place)
+    and generator state after each tick in ``ticks``."""
+    sess = _session(ep, rp)
+    carry = sess.init_carry(first_odom=odom[0])
+    out = {}
+    for i in range(max(ticks)):
+        carry, _ = sess.step(carry, odom[i], ranges[i], beams)
+        if i + 1 in ticks:
+            out[i + 1] = ([v.clone() if isinstance(v, torch.Tensor) else v
+                           for v in ckpt.carry_leaves(carry)],
+                          sess.generator.get_state())
+    return out
+
+
+@pytest.mark.parametrize("every", [1, 2])
+def test_stream_heartbeat_holds_its_labelled_carry(traj, tmp_path, every):
+    """With windows that are ready only once waited on and two in flight
+    (``max_pending=2``), a window drains when two later windows have been
+    dispatched, so the live carry is ahead of the drained ticks.  Every
+    heartbeat must hold the carry after exactly the ticks of its label,
+    bit for bit, and that tick's generator state (the JAX stream saves the
+    live carry under the drained count, stream.py:161-166, and fails
+    this).  At ``checkpoint_every=1`` three heartbeats are in flight at
+    once, so no buffer may be reused before its file is written."""
+    odom, ranges, beams = traj
+    ep, rp = _params()
+    cdir = str(tmp_path / "hb")
+    stream = TStream(_session(ep, rp), n_beams=B, beam_angles=beams,
+                     window=8, max_pending=2, checkpoint_dir=cdir,
+                     checkpoint_every=every, first_odom=odom[0])
+    real = stream._to_host
+    stream._to_host = lambda outs: (real(outs)[0], _HeldEvent([]))
+    labels = []
+    for i in range(40):
+        stream.push(odom[i], ranges[i])
+        got = sorted(os.listdir(cdir)) if os.path.isdir(cdir) else []
+        if got and (not labels or got[-1] != labels[-1]):
+            labels.append(got[-1])
+            # written when its window drained: the live carry is ahead
+            assert stream._ticks > ckpt.step_of(got[-1])
+    stream.flush()
+    want_ticks = list(range(8 * every, 41, 8 * every))
+    assert sorted(os.listdir(cdir)) == [f"step_{k:08d}" for k in want_ticks]
+    assert len(stream._free_bufs) <= -(-2 // every) + 1
+    want = _offline_carries(ep, rp, odom, ranges, beams, want_ticks)
+    tmpl = _session(ep, rp)
+    for k in want_ticks:
+        got = ckpt.load_checkpoint(os.path.join(cdir, f"step_{k:08d}"),
+                                   tmpl.init_carry(first_odom=odom[0]),
+                                   generator=tmpl.generator)
+        leaves, state = want[k]
+        for j, (a, b) in enumerate(zip(ckpt.carry_leaves(got), leaves)):
+            assert (a is None and b is None) or torch.equal(a, b), (k, j)
+        assert torch.equal(tmpl.generator.get_state(), state), k
+
+
+def test_stream_restores_from_a_heartbeat(traj, tmp_path):
+    """A stream abandoned after 44 ticks (its newest heartbeat on disk is
+    tick 32); a fresh stream restores that heartbeat before its first
+    push and runs the ticks after it: bit-equal to the offline run's, its
+    own heartbeats labelled on from 32 (48, and 60 at the flushed
+    remainder); a restore after a push raises."""
+    odom, ranges, beams = traj
+    ep, rp = _params()
+    cdir = str(tmp_path / "hb")
+    dead = TStream(_session(ep, rp), n_beams=B, beam_angles=beams,
+                   window=8, checkpoint_dir=cdir, checkpoint_every=2,
+                   first_odom=odom[0])
+    for i in range(44):
+        dead.push(odom[i], ranges[i])
+    latest = ckpt.latest_step_dir(cdir)
+    start = ckpt.step_of(latest)
+    assert start == 32
+    stream = TStream(_session(ep, rp), n_beams=B, beam_angles=beams,
+                     window=8, checkpoint_dir=cdir, checkpoint_every=2,
+                     first_odom=odom[0])
+    stream.restore(latest)
+    got = _push_all(stream, odom[start:], ranges[start:])
+    _, off = _session(ep, rp).run(odom, ranges, beams)
+    want = _leaves(off)
+    assert len(got) == T - start
+    for i, o in enumerate(got):
+        for name in ("pose", "n_active", "n_obs", "obs.index"):
+            np.testing.assert_array_equal(_leaves(o)[name],
+                                          want[name][start + i].numpy(),
+                                          err_msg=f"{name} tick {start + i}")
+    # the fresh stream's windows 2 and 4 (the flushed remainder)
+    assert sorted(os.listdir(cdir)) == ["step_00000016", "step_00000032",
+                                        "step_00000048", "step_00000060"]
+    with pytest.raises(RuntimeError, match="before its first push"):
+        stream.restore(latest)
 
 
 STATS_CASES = {
