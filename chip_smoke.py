@@ -103,6 +103,9 @@ Phases (each prints one line; any failure exits non-zero with no result):
    torch.profiler line (device busy share, device operations per tick,
    the kernels with most device time), whose device operations per tick
    must be fewer than with the rounds as torch ops (printed beside them);
+   then utils/debug.validate_state on the tuned state must fail at its
+   dtype assertion (bf16 P beside f32 x, as the JAX package's does) and
+   assert_symmetric pass on its P (K1 keeps it bit-symmetric);
 6c. the JAX package's headline batched update (bench.py:211-276) at
    recommended_schedule(10000): a full state of 10,000 landmarks
    (checks.full_state, D = 20003 padded to 20480, bf16 P), bench.py's
@@ -126,7 +129,12 @@ Phases (each prints one line; any failure exits non-zero with no result):
    launch each of K2, K4, K5 and wall_search per tick, no K1 or
    score_lines launch, no host sync in a tick; the median tick time and a
    torch.profiler line, whose device operations per tick must be fewer
-   than with the rounds as torch ops (printed beside them);
+   than with the rounds as torch ops (printed beside them); then
+   utils/debug.validate_state passes on the 10k state (its seconds on
+   the host clock printed; it reads back scalars only), P's largest
+   asymmetry is printed (K4 is not symmetric by construction), and with
+   one element of P's inactive block set to 1 validate_state must fail
+   at its inactive-block check, the element then set back;
 7b. the square-root path at full width: update_mode='srekf_fast' with
    rows_gather='pallas' at capacity 10000 (S (20067, 20067) f32:
    3 + 2·10000 + 64 noise-buffer dims, unpadded) for 72 ticks, so the 64th
@@ -206,6 +214,26 @@ Phases (each prints one line; any failure exits non-zero with no result):
    control, two runs each in turns, for what each feature costs a tick
    (resolved only where every run without the feature is faster than
    every run with all on);
+10c. occupancy at full width, while phase 10's run is still live: its
+   400 estimated poses and the 1024-beam scans it ran on fused by
+   ops/occupancy.map_session (64 samples a beam) into one f32 grid at
+   0.05 m a cell over the bounds of the world's walls plus the 10 m
+   range (floorplan_world(16, 16), 128 m square turned 45°), on the card
+   with PyTorch's sync debug mode on (no host sync), its ms per scan
+   (CUDA events), device operations per scan (a profile of 8 scans) and
+   the grid's bytes printed; the same fusion on the CPU: every cell
+   bit-equal, but where a sample within checks.OCC_EDGE_ULPS f32 ulps of
+   a cell edge reaches it, and there parted by no more than those
+   samples' increments (checks.occupancy_edge_budget; the tolerance is
+   0 elsewhere, since the increments one index_add_ gives a cell are all
+   equal and their order cannot change the sum), and the cells that
+   differ at most checks.OCC_DIFFER_SHARE of those touched; the cells
+   that differ, the largest log-odds gap and the touched cells whose
+   budget reaches twice the clamp printed; a control with the last scan's
+   occupied adds dropped must fail the same comparison; occupied (p >
+   0.7) > 0 and free (p < 0.3) > occupied, as
+   examples/occupancy_mapping.py requires.  Phase 10's launch counts
+   above are this path's K1 and wall_search launches;
 10b. eviction at full width: checks.evict_case (bench.py's full state
    at K = 10000, all slots active, per-slot variances spread) with about
    a quarter of the slots dropped by prune_by_uncertainty and
@@ -360,6 +388,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -414,6 +443,16 @@ _START = time.perf_counter()
 def log(msg):
     """One line of the log, after the seconds since the script started."""
     print(f"[{time.perf_counter() - _START:7.1f} s] {msg}", flush=True)
+
+
+def failing_assertion(fn, *args):
+    """The source line of the assertion at which ``fn(*args)`` raises
+    AssertionError, or None when it returns."""
+    try:
+        fn(*args)
+    except AssertionError as e:
+        return traceback.extract_tb(e.__traceback__)[-1].line
+    return None
 
 
 def check(cond, msg):
@@ -690,6 +729,120 @@ def full_width_run(torch, tp, W, counted, ep, rp, traj, T):
                f"{len(syncs)} host syncs in one tick at {syncs}")
     return dict(sess=sess, carry=carry, launches=launches, summary=summary,
                 tick_median=statistics.median(tick_ms))
+
+
+# phase 10c: the campaign's scans fused at OCC_RES m a cell into a grid
+# over the world's walls plus the 10 m range, OCC_SAMPLES free-space
+# samples a beam (ops/occupancy.map_session's default).  The tolerance of
+# the card against the CPU: within one index_add_ every increment a cell
+# receives is the same number (l_free, or l_occ, or 0), so the card's
+# atomics, in whatever order, reach the sums the CPU's sequential adds
+# reach: a cell is bit-equal (gap 0) unless a sample within
+# checks.OCC_EDGE_ULPS of a cell edge can reach it (the card's cosf/sinf
+# and the CPU's differ in their last ulps), and there it may part by no
+# more than those samples' increments (checks.occupancy_edge_budget);
+# and, as in the CPU's f32 test, the cells that differ at all are at most
+# checks.OCC_DIFFER_SHARE of the touched ones, since a cell whose budget
+# reaches twice the clamp is held by nothing else (their count is printed)
+OCC_RES, OCC_RANGE, OCC_SAMPLES = 0.05, 10.0, 64
+
+
+def occupancy_phase(torch, dev, card, segments, poses, ranges, beams):
+    """Phase 10c: the campaign's estimated poses and scans fused into a
+    whole-world occupancy grid on the card, held against the CPU."""
+    from ekf_slam_tpu_torch.checks import (OCC_DIFFER_SHARE, OCC_EDGE_ULPS,
+                                           occupancy_compare,
+                                           occupancy_edge_budget)
+    from ekf_slam_tpu_torch.ops.occupancy import (init_grid, map_session,
+                                                  occupancy_probability,
+                                                  update_grid)
+    from ekf_slam_tpu_torch.ops.scan import scan_from_ranges
+    T = poses.shape[0]
+    seg = segments.double().cpu()
+    lo = torch.minimum(seg[:, :2].amin(0), seg[:, 2:].amin(0)) - OCC_RANGE
+    hi = torch.maximum(seg[:, :2].amax(0), seg[:, 2:].amax(0)) + OCC_RANGE
+    Wc, Hc = (int(math.ceil(float(hi[k] - lo[k]) / OCC_RES))
+              for k in range(2))
+    origin = (float(lo[0]), float(lo[1]))
+    grid = init_grid(Wc, Hc, OCC_RES, origin=origin, device=dev)
+    nbytes = grid.logodds.numel() * grid.logodds.element_size()
+    check(poses.dtype == ranges.dtype == torch.float32
+          and poses.is_cuda and ranges.is_cuda,
+          f"phase 10c inputs {poses.dtype} {ranges.dtype} {poses.device}")
+    map_session(grid, poses[:2], ranges[:2], beams)       # warm-up
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        e0.record()
+        card_grid = map_session(grid, poses, ranges, beams)
+        e1.record()
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = syncs_of(caught)
+    check(not syncs, f"phase 10c: {len(syncs)} host syncs in the fusion at "
+          f"{sorted(set(syncs))}")
+    ms_scan = e0.elapsed_time(e1) / T
+    P_PROF = 8
+    prof, ops = profile_device(
+        torch, lambda: map_session(grid, poses[:P_PROF], ranges[:P_PROF],
+                                   beams), P_PROF, "scan")[:2]
+    check(ops is not None, f"phase 10c profile: {prof}")
+
+    # the same fusion on the CPU, and what near-edge samples may move
+    c0 = time.perf_counter()
+    cpu_grid = map_session(grid._replace(logodds=grid.logodds.cpu(),
+                                         origin=grid.origin.cpu()),
+                           poses.cpu(), ranges.cpu(), beams.cpu())
+    cpu_s = time.perf_counter() - c0
+    budget, n_edge = occupancy_edge_budget((Hc, Wc), origin, OCC_RES,
+                                           poses, ranges, beams, OCC_SAMPLES)
+    cmp = occupancy_compare(card_grid.logodds, cpu_grid.logodds, budget)
+    check(cmp["n_unexplained"] == 0,
+          f"phase 10c: the card's grid parts from the CPU's past the "
+          f"near-edge budget: {cmp}")
+    check(cmp["n_differ"] <= OCC_DIFFER_SHARE * cmp["n_touched"],
+          f"phase 10c: more than {OCC_DIFFER_SHARE} of the touched cells "
+          f"differ between the card and the CPU: {cmp}")
+    # the control: the last scan's occupied adds dropped on the card
+    ctl = map_session(grid, poses[:-1], ranges[:-1], beams)
+    ctl = update_grid(ctl, scan_from_ranges(ranges[-1], beams), poses[-1],
+                      l_occ=0.0)
+    cmp_ctl = occupancy_compare(ctl.logodds, cpu_grid.logodds, budget)
+    check(cmp_ctl["n_unexplained"] > 0,
+          f"phase 10c control (the last scan's occupied adds dropped) "
+          f"passed the comparison: {cmp_ctl}")
+    prob = occupancy_probability(card_grid)
+    n_occ = int((prob > 0.7).sum())
+    n_free = int((prob < 0.3).sum())
+    n_unk = prob.numel() - n_occ - n_free
+    check(n_occ > 0 and n_free > n_occ,
+          f"phase 10c: occupied={n_occ} free={n_free}")
+    log(f"phase 10c occupancy at full width ok: the campaign's {T} "
+        f"estimated poses and {ranges.shape[1]}-beam scans fused by "
+        f"map_session ({OCC_SAMPLES} samples a beam) into a grid of "
+        f"{Hc}x{Wc} cells at {OCC_RES} m (the walls' bounds plus "
+        f"{OCC_RANGE} m; f32, {nbytes / 1e6:.1f} MB, origin "
+        f"({origin[0]:.3f}, {origin[1]:.3f})); occupied={n_occ} "
+        f"free={n_free} unknown={n_unk}; {ms_scan:.4f} ms per scan "
+        f"(CUDA events over the {T} scans, PyTorch's sync debug mode on: "
+        f"no host sync), {ops:.1f} device ops per scan ({P_PROF}-scan "
+        f"profile, the call's grid copy included); card against the CPU "
+        f"over all {T} scans: {cmp['n_differ']} of {cmp['n_touched']} "
+        f"touched cells differ (at most {OCC_DIFFER_SHARE} of them may), "
+        f"largest log-odds gap {cmp['max_gap']:.4g}, "
+        f"{cmp['n_unexplained']} past their near-edge budget, "
+        f"{cmp['n_unheld']} touched cells with a budget of twice the "
+        f"clamp or more, which only the share holds "
+        f"({n_edge} samples within {OCC_EDGE_ULPS} f32 ulps of a cell "
+        f"edge; tolerance 0 elsewhere: equal increments in any order); "
+        f"the control with the last scan's occupied adds dropped: "
+        f"{cmp_ctl['n_unexplained']} cells past their budget (must be "
+        f"> 0), largest gap {cmp_ctl['max_gap']:.4g}; the CPU's fusion "
+        f"{cpu_s:.2f} s; card: {card}")
+    log(f"phase 10c profile: {prof}; card: {card}")
+    return dict(ms_scan=ms_scan, ops=ops, nbytes=nbytes)
 
 
 # phase 12's sizes: the fleet of four at phase 6's configuration
@@ -1758,6 +1911,7 @@ def main():
     from ekf_slam_tpu_torch.state import FilterState
     from ekf_slam_tpu_torch.utils.faults import corrupt_odometry, guarded
     from ekf_slam_tpu_torch.utils.metrics import MetricsLogger, filter_health
+    from ekf_slam_tpu_torch.utils.debug import assert_symmetric, validate_state
     from ekf_slam_tpu_torch.io import scanlog as SL
     from ekf_slam_tpu_torch.io import socket_feed as SF
     from ekf_slam_tpu_torch.io import stream as ST
@@ -2392,6 +2546,20 @@ def main():
     log(f"phase 6 device ops per tick: {ops6:.0f} with the wall search as "
         f"one launch, {OPS_BEFORE_WALL_SEARCH['tuned']} with its rounds as "
         f"torch ops around 1 + T score_lines launches (PERF.md §5)")
+    # state validation on the tuned state: bf16 P beside f32 x fails the
+    # dtype assertion, as the JAX package's validate_state does
+    # (debug.py:39); K1 keeps this P bit-symmetric
+    failed_at = failing_assertion(validate_state, filt, ep)
+    check(failed_at is not None
+          and "state.P.dtype == state.x.dtype" in failed_at,
+          f"phase 6: validate_state on the tuned state (P {filt.P.dtype}, "
+          f"x {filt.x.dtype}) did not fail at the dtype assertion: "
+          f"{failed_at}")
+    asym6 = assert_symmetric(filt.P)
+    log(f"phase 6 state validation ok: validate_state on the tuned state "
+        f"raises at `{failed_at.strip()}` (P {filt.P.dtype} beside x "
+        f"{filt.x.dtype}, as the JAX package's does); assert_symmetric "
+        f"passes, P's largest asymmetry {asym6:.3e}; card: {card}")
     launches6 = launches
     tick6_ms = run6["tick_median"]      # beside the fleet's tick (12a)
     P6 = filt.P                         # the tuned path's P, for phase 8
@@ -2563,6 +2731,32 @@ def main():
         f"one launch, {OPS_BEFORE_WALL_SEARCH['kernel']} with its rounds as "
         f"torch ops, {OPS_BEFORE_FUSED_GATE} when torch ops also "
         f"built the gate's strips and bearing (PERF.md §5)")
+    # state validation at 10k on the kernel path's state (x f32, P
+    # [20003²] f32): it passes; K4's update is not symmetric by
+    # construction, so P's asymmetry is printed, not held; one element of
+    # P's inactive block set to 1 must fail it, and is set back
+    torch.cuda.synchronize()
+    v0 = time.perf_counter()
+    validate_state(filt7, ep7)
+    v_s = time.perf_counter() - v0
+    asym7 = float((filt7.P - filt7.P.mT).abs().max())
+    corner = filt7.P[D7 - 1, D7 - 1].clone()
+    check(float(corner) == 0.0, f"phase 7: P[{D7 - 1}, {D7 - 1}] = "
+          f"{float(corner)} in the inactive block")
+    filt7.P[D7 - 1, D7 - 1] = 1.0
+    failed_at = failing_assertion(validate_state, filt7, ep7)
+    filt7.P[D7 - 1, D7 - 1] = corner
+    check(failed_at is not None and "state.P[d:, :].any()" in failed_at,
+          f"phase 7: validate_state with P[{D7 - 1}, {D7 - 1}] = 1 did not "
+          f"fail at the inactive block: {failed_at}")
+    validate_state(filt7, ep7)
+    log(f"phase 7 state validation ok: validate_state on the 10k state "
+        f"(x {filt7.x.dtype}, P {tuple(filt7.P.shape)} {filt7.P.dtype}, "
+        f"n_active {int(filt7.n_active)}) passes in {v_s:.4f} s (host "
+        f"clock around the call, scalars read back only); P's largest "
+        f"asymmetry {asym7:.3e} (K4 is not symmetric by construction); "
+        f"P[{D7 - 1}, {D7 - 1}] set to 1 fails it at "
+        f"`{failed_at.strip()}`, set back and passing again; card: {card}")
     P7 = filt7.P.clone()
     del run7, filt7
     torch.cuda.empty_cache()
@@ -3313,6 +3507,9 @@ def main():
         f"over 10000 slots {dup_ms:.4f} ms (its [K,K] planes, ~62 bytes a "
         f"pair read and written by its torch ops: ~{dup_bytes / 1e9:.1f} "
         f"GB, {dup_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate); ICP profile: {icp_prof[0]}; card: {card}")
+    # -- 10c. the campaign's scans fused into a whole-world occupancy grid
+    occupancy_phase(torch, dev, card, world10.segments, outs10.pose,
+                    traj10.ranges[:T10], traj10.beam_angles)
     del sess10, carry10, filt10, outs10
     torch.cuda.empty_cache()
     # what each feature costs a tick: the first T10W ticks through fresh

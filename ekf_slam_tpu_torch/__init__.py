@@ -36,7 +36,12 @@ read back through one CUDA event a window), fed by ``push`` or by
 filter-health metrics (``utils.metrics``).  A session's carry and
 generator are checkpointed by ``utils.checkpointing`` (the stream's
 heartbeats too), and ``utils.recovery`` runs a session with checkpoints
-and resumes a killed one from the newest, bit for bit.  The exports
+and resumes a killed one from the newest, bit for bit.  Mapping and
+inspection: ``ops.occupancy`` fuses scans into a log-odds occupancy
+grid, ``utils.debug.validate_state`` checks a state's invariants,
+``viz`` draws the reference's frames (matplotlib is imported only
+when a plot is drawn), ``oracle`` holds the NumPy oracles, and
+``examples`` three runnable demos.  The exports
 are the JAX package's but ``MeshConfig``, which comes with the
 distributed layers (ROADMAP §1 item 6).
 """

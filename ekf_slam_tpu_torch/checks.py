@@ -5,7 +5,8 @@ the tolerance of its in-kernel bearing, the K5 pair starts, the K6
 Gram's precision check against the f64 Gram, the square-root
 recompression's QR branch, one session run on several
 devices with the same inputs, the large-world campaign's configuration
-and route, and the JAX package's batched-update
+and route, the occupancy grid's comparison across devices and packages,
+and the JAX package's batched-update
 benchmark (bench.py) as the port runs it: its parameters, full state,
 measurements and one gate + update batch.  Each caller keeps its own
 shapes and tolerances."""
@@ -1007,3 +1008,102 @@ def sequential_chain(state: FilterState, zs: torch.Tensor,
         _, slot, _ = gate(state, z, R2, params)
         state = _ekf.update(state, z, slot, R2, params)
     return state
+
+
+# how far a beam sample's grid coordinate, computed in f32 (or f64) by
+# either side of an occupancy comparison, may lie from its exact value:
+# OCC_EDGE_ULPS units of the dtype's epsilon times the magnitudes its
+# operations round (the pose, the range times (1 + the heading in
+# radians), for the trig's argument and result, the origin and the
+# coordinate itself), in cells.  The port's f32 coordinates on the CPU
+# stay within half of one unit of their exact values
+# (tests/test_torch_occupancy.py), so 4 leaves 8 times that for the
+# card's trig (2 ulps) and XLA's fused multiply-add
+OCC_EDGE_ULPS = 4
+# how many cells of an f32 occupancy comparison may differ at all, as a
+# share of the cells either grid touched: near-edge samples are rare, so
+# a comparison whose differing cells pass this share is no longer held
+# by the budget alone
+OCC_DIFFER_SHARE = 0.005
+
+
+def occupancy_edge_budget(shape: Tuple[int, int], origin, resolution: float,
+                          poses: torch.Tensor, ranges: torch.Tensor,
+                          beam_angles: torch.Tensor, n_samples: int = 64,
+                          dtype=torch.float32) -> Tuple[torch.Tensor, int]:
+    """How far two fusions of the same scans (``map_session(grid, poses,
+    ranges, beam_angles)``, each in ``dtype``) may part at each cell, as
+    f64 [H, W] on the CPU, and the number of samples that can part them.
+    A sample (free or endpoint) can land in one cell on one side and in
+    the next on the other only when its exact grid coordinate
+    (recomputed here in f64) lies within δ of a cell edge, δ being
+    OCC_EDGE_ULPS of ``dtype``'s epsilon, scaled as it says; its
+    increment's size (map_session's: 0.4 free, 2.0 occupied) is added to
+    each in-grid cell of floor(u ± δ) × floor(v ± δ).  A clamp moves two
+    values no further apart, so the sum over all scans bounds a cell's
+    final gap; every other sample lands in the same cell on both
+    sides."""
+    H, W = shape
+    f64 = torch.float64
+    ox, oy = (float(v) for v in torch.as_tensor(origin).double().cpu())
+    res = float(resolution)
+    Ps = poses.detach().cpu().to(f64)
+    Rs = ranges.detach().cpu().to(f64)
+    A = beam_angles.detach().cpu().to(f64)
+    frac = torch.cat([(torch.arange(n_samples, dtype=f64) + 0.5)
+                      / (n_samples + 1), torch.ones(1, dtype=f64)])
+    size = torch.cat([torch.full((n_samples,), 0.4, dtype=f64),
+                      torch.full((1,), 2.0, dtype=f64)])
+    eps = OCC_EDGE_ULPS * torch.finfo(dtype).eps
+    budget = torch.zeros(H * W, dtype=f64)
+    n_edge = 0
+    for t in range(Ps.shape[0]):
+        px, py, th = Ps[t, 0], Ps[t, 1], Ps[t, 2]
+        valid = torch.isfinite(Rs[t]) & (Rs[t] > 0)
+        r = torch.where(valid, Rs[t], 0.0)
+        rad = (A + th) * (math.pi / 180.0)
+        d = r[:, None] * frac[None, :]                        # [B, S+1]
+        x = px + d * torch.cos(rad)[:, None]
+        y = py + d * torch.sin(rad)[:, None]
+        u, v = (x - ox) / res, (y - oy) / res
+        mag = (px.abs() + py.abs() + abs(ox) + abs(oy)
+               + (r * (1.0 + rad.abs()))[:, None] + x.abs() + y.abs())
+        du = eps * (mag / res + u.abs() + v.abs())
+
+        def edge_dist(c):
+            f = c - torch.floor(c)
+            return torch.minimum(f, 1.0 - f)
+        near = ((edge_dist(u) < du) | (edge_dist(v) < du)) & valid[:, None]
+        if not bool(near.any()):
+            continue
+        n_edge += int(near.sum())
+        un, vn, dn = u[near], v[near], du[near]
+        inc = size.expand(near.shape)[near]
+        for ju in (torch.floor(un - dn), torch.floor(un + dn)):
+            for iv in (torch.floor(vn - dn), torch.floor(vn + dn)):
+                ok = (ju >= 0) & (ju < W) & (iv >= 0) & (iv < H)
+                budget.index_add_(0, (iv[ok] * W + ju[ok]).long(), inc[ok])
+    return budget.reshape(H, W), n_edge
+
+
+def occupancy_compare(got: torch.Tensor, want: torch.Tensor,
+                      budget: torch.Tensor, tol: float = 0.0,
+                      clamp: float = 10.0) -> Dict[str, float]:
+    """Two log-odds grids of the same scans: the cells more than ``tol``
+    apart, those of them more than ``tol`` past their ``budget``
+    (occupancy_edge_budget), the largest |gap|, the cells either grid
+    touched, and those of them whose budget reaches 2·``clamp`` (the
+    fusion's clamp), which no gap can pass, so that the budget holds
+    nothing there.  Within one ``index_add_`` every increment a cell
+    receives is the same number (or 0), so the order of the adds cannot
+    change a sum: a cell that no near-edge sample can reach is
+    bit-equal, and ``tol`` 0 holds it so."""
+    a = got.detach().cpu().to(torch.float64)
+    b = want.detach().cpu().to(torch.float64)
+    gap = (a - b).abs()
+    touched = (a != 0) | (b != 0)
+    return dict(n_differ=int((gap > tol).sum()),
+                n_unexplained=int((gap > budget + tol).sum()),
+                max_gap=float(gap.max()),
+                n_touched=int(touched.sum()),
+                n_unheld=int((touched & (budget >= 2 * clamp)).sum()))

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .config import EKFParams, RansacParams, SimConfig, resolve_device
+from .ops.occupancy import OccupancyGrid
 from .ops.ransac import LandmarkTable
 from .session import SessionCarry
 from .state import FilterState
@@ -82,3 +83,12 @@ def carry_from_numpy(carry, device=None) -> SessionCarry:
                         prev_pts=opt("prev_pts"),
                         prev_valid=opt("prev_valid"), prev_u=opt("prev_u"),
                         sr_tick=None if sr_tick is None else int(sr_tick))
+
+
+def grid_from_numpy(grid, device=None) -> OccupancyGrid:
+    """The port's OccupancyGrid from the JAX OccupancyGrid's fields as
+    numpy arrays (any object with ``logodds`` [H,W], ``origin`` [2] and
+    ``resolution``, a float)."""
+    return OccupancyGrid(logodds=tensor_from_numpy(grid.logodds, device),
+                         origin=tensor_from_numpy(grid.origin, device),
+                         resolution=float(grid.resolution))

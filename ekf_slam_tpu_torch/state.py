@@ -58,3 +58,9 @@ def init_state(params: EKFParams, pad_to_multiple_of: int = 1,
         active=torch.zeros((K,), dtype=torch.bool, device=device),
         n_active=torch.zeros((), dtype=torch.int32, device=device),
     )
+
+
+def lm_slice_index(k):
+    """State row of landmark slot k (0-based): 3 + 2k, for a Python int
+    or a tensor."""
+    return 3 + 2 * k

@@ -165,6 +165,26 @@ def test_import_scan_covers_the_operating_modules(module):
                             for m in mods), mods
 
 
+@pytest.mark.parametrize("module", [
+    "state.py", "utils/debug.py", "ops/occupancy.py", "oracle/np_ekf.py",
+    "oracle/np_ransac.py", "viz.py", "examples/occupancy_mapping.py",
+    "examples/live_view.py", "examples/run_sim_slam.py"])
+def test_import_scan_covers_the_mapping_and_tooling_modules(module):
+    """The mapping and inspection modules are the port's own: the scan
+    reads each, and each imports neither JAX nor the JAX package nor chex
+    (which imports JAX); the oracles are copies, not imports; matplotlib
+    only inside functions (viz.py, the examples)."""
+    path = ROOT / "ekf_slam_tpu_torch" / module
+    assert path in _scanned_files()
+    mods = list(_imports(path))
+    assert mods and not any(m.split(".")[0] in ("jax", "jaxlib", "chex",
+                                                "ekf_slam_tpu")
+                            for m in mods), mods
+    top_level = [node for node in ast.parse(path.read_text()).body
+                 if isinstance(node, (ast.Import, ast.ImportFrom))]
+    assert not any("matplotlib" in ast.dump(node) for node in top_level)
+
+
 def test_exports_match():
     """The port's __all__ holds every name the JAX package exports but
     MeshConfig (the distributed layers, a later slice), each bound; the

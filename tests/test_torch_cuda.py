@@ -937,3 +937,58 @@ def test_stream_heartbeat_on_card_holds_its_labelled_carry(dev, tmp_path):
                 assert (a is None and b is None) or torch.equal(a, b), i
             assert torch.equal(tmpl.generator.get_state(),
                                sess.generator.get_state())
+
+
+def test_occupancy_on_card_matches_cpu_without_a_sync(dev):
+    """map_session on the card, with sync-debug errors on, against the
+    same fusion on the CPU: every cell bit-equal but where a near-edge
+    sample reaches it, and there within what such samples add
+    (checks.occupancy_edge_budget); the last scan's occupied adds
+    dropped fail the same comparison."""
+    from ekf_slam_tpu_torch.checks import (OCC_DIFFER_SHARE,
+                                           occupancy_compare,
+                                           occupancy_edge_budget)
+    from ekf_slam_tpu_torch.config import SimConfig
+    from ekf_slam_tpu_torch.ops.occupancy import (init_grid, map_session,
+                                                  update_grid)
+    from ekf_slam_tpu_torch.ops.scan import scan_from_ranges
+    from ekf_slam_tpu_torch.sim import world as W
+    T = 40
+    tr = W.simulate(W.rectangle_room(4.0, 3.0, device="cpu"),
+                    W.circle_controls(T, 0.05, 3.0, device="cpu"),
+                    SimConfig(n_beams=1024, max_range=12.0),
+                    torch.Generator().manual_seed(3))
+    grid = init_grid(200, 160, 0.05, origin=(-5.0, -4.0), device="cpu")
+    want = map_session(grid, tr.truth, tr.ranges, tr.beam_angles)
+    on = grid._replace(logodds=grid.logodds.to(dev),
+                       origin=grid.origin.to(dev))
+    P, R, A = (v.to(dev) for v in (tr.truth, tr.ranges, tr.beam_angles))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = map_session(on, P, R, A)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    budget, _ = occupancy_edge_budget((160, 200), (-5.0, -4.0), 0.05,
+                                      tr.truth, tr.ranges, tr.beam_angles)
+    cmp = occupancy_compare(got.logodds, want.logodds, budget)
+    assert cmp["n_unexplained"] == 0, cmp
+    assert cmp["n_differ"] <= OCC_DIFFER_SHARE * cmp["n_touched"], cmp
+    cut = map_session(on, P[:-1], R[:-1], A)
+    cut = update_grid(cut, scan_from_ranges(R[-1], A), P[-1], l_occ=0.0)
+    assert occupancy_compare(cut.logodds, want.logodds,
+                             budget)["n_unexplained"] > 0
+
+
+def test_validate_state_on_card(dev):
+    """validate_state on a card state passes, and fails on a nonzero
+    element of P's inactive block, as on the CPU."""
+    from ekf_slam_tpu_torch.config import EKFParams
+    from ekf_slam_tpu_torch.state import init_state
+    from ekf_slam_tpu_torch.utils.debug import validate_state
+    ep = EKFParams(capacity=300)
+    st = init_state(ep, device=dev)
+    validate_state(st, ep)
+    st.P[ep.dim - 1, 7] = 1.0
+    with pytest.raises(AssertionError, match="inactive block"):
+        validate_state(st, ep)
